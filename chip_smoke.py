@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Drive cugraph_tpu_torch's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py [--scale 21] [--seed 0]
+
+Phases, each unguarded, so any failure ends the run with a non-zero exit:
+
+1. Device: require CUDA; print the card's name and power limit.
+2. Build: compile the CUDA kernels from csrc/ with nvcc (sm_90a).
+3. Kernels against their plain versions, on a small skewed graph and at
+   the main path's shapes: spmv_sum, spmv_minplus, spmm_rows (both modes,
+   and an F other than 128). Median times, bounds, library yardsticks.
+4. Main path at RMAT scale 21, edgefactor 16, scrambled: generate ->
+   renumber -> from_edgelist -> pagerank(tol=0, 50 iterations) ->
+   bfs(0) -> 2-layer GraphSAGE forward (F = 128 -> 128 -> 64), each held
+   against a reference computed here from the plain versions. The launch
+   counters are set to 0 just before and read just after.
+
+The line before the last is one JSON object with a "kernels" list; the
+last line is {"ok": true, "device": {...}}. Without CUDA the script exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate outside
+# the tensor cores. Bounds are stated against these, beside the card's
+# power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+DEV = torch.device("cuda")
+# tolerances (see check_* below)
+TOL_SUM_REL = 1e-5  # spmv_sum, spmm_rows f32 / bf16 vs float64 plain version
+TOL_PAGERANK_ABS = 1e-6
+TOL_PAGERANK_SUM = 1e-4
+TOL_SAGE_ABS = 1e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median over ``reps`` launches, each between two CUDA events, after
+    one warm-up call."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------- graphs
+
+
+def rmat_graph(scale: int, seed: int):
+    """The main path's graph: R-MAT edgefactor 16, scrambled, renumbered
+    by descending degree, CSR + CSC on the card."""
+    import cugraph_tpu_torch as ct
+
+    v = 1 << scale
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    src, dst = ct.rmat_edgelist(scale, 16 * v, scramble=True, generator=gen, device=DEV)
+    new_to_old = ct.compute_renumber_map(src, dst, v, device=DEV)
+    src, dst = ct.apply_renumber_map(new_to_old, src, dst, device=DEV)
+    return ct.from_edgelist(src, dst, num_vertices=v, device=DEV)
+
+
+def skewed_graph(seed: int, v: int = 5000, e: int = 60000, weighted: bool = True):
+    """A small graph with hub sources, heavy destinations and empty rows."""
+    import cugraph_tpu_torch as ct
+
+    gen = torch.Generator().manual_seed(seed)
+    src = (torch.rand(e, generator=gen) ** 4 * v).long()
+    dst = (torch.rand(e, generator=gen) ** 3 * (v - 100)).long()  # last 100 rows empty
+    w = torch.randn(e, generator=gen) if weighted else None
+    return ct.from_edgelist(src, dst, w, num_vertices=v, device=DEV)
+
+
+# ------------------------------------------------------- kernel checks
+
+
+def sum_error(adj, y, x, reference, **kw):
+    """(max abs error, max relative error) of a sum kernel against its
+    plain version in float64. The relative error of a row is taken
+    against the row's sum of |w * x|, the size of its terms: cancellation
+    makes the plain relative error of a sum meaningless."""
+    ref = reference(adj, x.double(), **kw)
+    abs_adj = adj if adj.weights is None else dataclasses.replace(adj, weights=adj.weights.abs())
+    size = reference(abs_adj, x.double().abs(), **kw)
+    err = (y.double() - ref).abs()
+    require(bool((err[size == 0] == 0).all()), "rows with no terms must be exactly 0")
+    rel = (err / size.clamp(min=1e-300)).max().item() if err.numel() else 0.0
+    return err.max().item() if err.numel() else 0.0, rel
+
+
+def check_spmv_sum(adj, x) -> float:
+    from cugraph_tpu_torch.prims.cuda import spmv_sum, spmv_sum_reference
+
+    y = spmv_sum(adj, x)
+    sync()
+    abs_err, rel = sum_error(adj, y, x, spmv_sum_reference)
+    require(rel <= TOL_SUM_REL, f"spmv_sum relative error {rel} > {TOL_SUM_REL}")
+    return abs_err
+
+
+def check_spmv_minplus(adj, x, use_weights=True) -> float:
+    from cugraph_tpu_torch.prims.cuda import spmv_minplus, spmv_minplus_reference
+
+    y = spmv_minplus(adj, x, use_weights=use_weights)
+    ref = spmv_minplus_reference(adj, x, use_weights=use_weights)
+    sync()
+    require(torch.equal(torch.isinf(y), torch.isinf(ref)), "spmv_minplus +inf pattern differs")
+    require(torch.equal(y, ref), "spmv_minplus is not bit-exact")
+    return 0.0
+
+
+def check_spmm_rows(adj, x, precision) -> float:
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmm_rows_reference
+
+    y = spmm_rows(adj, x, precision=precision)
+    sync()
+    require(y.shape == (adj.num_majors, x.shape[1]), "spmm_rows output shape")
+    abs_err, rel = sum_error(adj, y, x, spmm_rows_reference, precision=precision)
+    require(rel <= TOL_SUM_REL, f"spmm_rows {precision} F={x.shape[1]} relative error {rel}")
+    return abs_err
+
+
+def small_graph_checks(seed: int) -> None:
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+
+    counters = (spmv_sum, spmv_minplus, spmm_rows)
+    before = [k.launches for k in counters]
+    gen = torch.Generator().manual_seed(seed)
+    for weighted in (True, False):
+        g = skewed_graph(seed + weighted, weighted=weighted)
+        adj = g.csc()
+        x = torch.randn(g.num_vertices, generator=gen).to(DEV)
+        check_spmv_sum(adj, x)
+        check_spmv_minplus(adj, x)
+        frontier = torch.rand(g.num_vertices, generator=gen).to(DEV) < 0.05
+        ids = torch.arange(g.num_vertices, dtype=torch.float32, device=DEV)
+        check_spmv_minplus(adj, torch.where(frontier, ids, float("inf")), use_weights=False)
+        for f in (128, 37):  # 37: the scalar path for F % 4 != 0
+            xf = torch.randn(g.num_vertices, f, generator=gen).to(DEV)
+            check_spmm_rows(adj, xf, "f32")
+            check_spmm_rows(adj, xf, "bf16")
+    require(
+        [k.launches - b for k, b in zip(counters, before)] == [2, 4, 8],
+        "every small-graph check must launch its kernel",
+    )
+    log("small skewed graphs: spmv_sum, spmv_minplus, spmm_rows (f32, bf16; F=128, 37) ok")
+
+
+def bound(bytes_moved: float, flops: float):
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def full_shape_kernels(g, seed: int) -> dict:
+    """Each kernel at the main path's shapes: check, time, bound."""
+    from cugraph_tpu_torch.prims.cuda import (
+        spmm_rows,
+        spmm_rows_reference,
+        spmv_minplus,
+        spmv_minplus_reference,
+        spmv_sum,
+        spmv_sum_reference,
+    )
+
+    adj = g.csc()
+    v, e = g.num_vertices, g.num_edges
+    n_src = int((g.out_degrees() > 0).sum())  # x rows the data needs
+    w_bytes = 0 if adj.weights is None else 4 * e
+    graph_bytes = 4 * (v + 1) + 4 * e + w_bytes
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    lib_a = torch.sparse_csr_tensor(
+        adj.offsets, adj.minors,
+        adj.weights if adj.weights is not None else torch.ones(e, device=DEV),
+        size=(v, v),
+    )
+    out = {}
+
+    # spmv_sum: PageRank's message, pr / out-degree, is positive
+    x = torch.rand(v, generator=gen, device=DEV) / v
+    err = check_spmv_sum(adj, x)
+    b_ms, b_by = bound(graph_bytes + 4 * n_src + 4 * v, e)
+    out["spmv_sum"] = dict(
+        max_abs_err=err, tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
+        ms=median_ms(lambda: spmv_sum(adj, x), 20),
+        plain_ms=median_ms(lambda: spmv_sum_reference(adj, x), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
+    )
+
+    # spmv_minplus: a BFS sweep, x = id in the frontier, +inf elsewhere
+    ids = torch.arange(v, dtype=torch.float32, device=DEV)
+    xb = torch.where(torch.rand(v, generator=gen, device=DEV) < 0.1, ids, float("inf"))
+    err = check_spmv_minplus(adj, xb, use_weights=False)
+    b_ms, b_by = bound(4 * (v + 1) + 4 * e + 4 * n_src + 4 * v, e)
+    out["spmv_minplus"] = dict(
+        max_abs_err=err, tol="bit-exact, +inf pattern equal",
+        ms=median_ms(lambda: spmv_minplus(adj, xb, use_weights=False), 20),
+        plain_ms=median_ms(lambda: spmv_minplus_reference(adj, xb, use_weights=False), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    del xb
+
+    # spmm_rows at F = 128 in the main path's bf16 mode, f32 beside it, and
+    # F = 40 in f32
+    f = 128
+    xs = torch.randn(v, f, generator=gen, device=DEV)
+    err_bf16 = check_spmm_rows(adj, xs, "bf16")
+    err_f32 = check_spmm_rows(adj, xs, "f32")
+    err_f40 = check_spmm_rows(adj, torch.randn(v, 40, generator=gen, device=DEV), "f32")
+    b_ms, b_by = bound(graph_bytes + 4 * f * n_src + 4 * f * v, 2 * e * f)
+    out["spmm_rows"] = dict(
+        max_abs_err=err_bf16, tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
+        ms=median_ms(lambda: spmm_rows(adj, xs, precision="bf16"), 10),
+        plain_ms=median_ms(lambda: spmm_rows_reference(adj, xs, precision="bf16"), 3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: lib_a @ xs, 10),
+        mode="bf16",
+        f32_ms=median_ms(lambda: spmm_rows(adj, xs, precision="f32"), 10),
+        f32_max_abs_err=err_f32, f40_f32_max_abs_err=err_f40,
+    )
+    log(f"full-shape kernels (V={v}, E={e}, sources with out-edges={n_src}): checks ok")
+    return out
+
+
+# ------------------------------------------------------------ main path
+
+
+def reference_pagerank(g, iterations: int, alpha: float = 0.85) -> torch.Tensor:
+    """The same power iteration in float64 over spmv_sum_reference."""
+    from cugraph_tpu_torch.prims.cuda import spmv_sum_reference
+
+    v = g.num_vertices
+    out_w = g.out_weight_sums().double()
+    dangling = out_w <= 0
+    inv_out = torch.where(dangling, 0.0, 1.0 / torch.where(dangling, 1.0, out_w))
+    pr = torch.full((v,), 1.0 / v, dtype=torch.float64, device=DEV)
+    for _ in range(iterations):
+        agg = spmv_sum_reference(g.csc(), pr * inv_out)
+        dsum = torch.where(dangling, pr, 0.0).sum()
+        pr = alpha * (agg + dsum / v) + (1.0 - alpha) / v
+    return pr
+
+
+def reference_bfs(g, source: int):
+    """Level-synchronous BFS over spmv_minplus_reference."""
+    from cugraph_tpu_torch.prims.cuda import spmv_minplus_reference
+
+    v = g.num_vertices
+    ids = torch.arange(v, dtype=torch.float32, device=DEV)
+    frontier = torch.zeros(v, dtype=torch.bool, device=DEV)
+    frontier[source] = True
+    visited = frontier.clone()
+    dist = torch.full((v,), 2**31 - 1, dtype=torch.int32, device=DEV)
+    pred = torch.full((v,), -1, dtype=torch.int32, device=DEV)
+    dist[source] = 0
+    depth = 0
+    while bool(frontier.any()):
+        y = spmv_minplus_reference(g.csc(), torch.where(frontier, ids, float("inf")),
+                                   use_weights=False)
+        new = torch.isfinite(y) & ~visited
+        depth += 1
+        dist[new] = depth
+        pred[new] = y[new].to(torch.int32)
+        visited |= new
+        frontier = new
+    return dist, pred
+
+
+def reference_graphsage(model, g, x) -> torch.Tensor:
+    """The model's layers applied by hand, with spmm_rows_reference for the
+    mean aggregation in the mode the port takes: bf16 on the card above
+    8192 vertices, exact f32 below (the dense branch) and on the CPU."""
+    from cugraph_tpu_torch.prims.cuda import spmm_rows_reference
+    from cugraph_tpu_torch.prims.dense_spmm import DENSE_MAX_VERTICES
+
+    bf16 = x.is_cuda and g.num_vertices > DENSE_MAX_VERTICES
+    deg = g.in_degrees().float().clamp(min=1)[:, None]
+    for i, conv in enumerate(model.convs):
+        nbr = spmm_rows_reference(g.csc(), x, precision="bf16" if bf16 else "f32") / deg
+        x = conv.lin_self(x) + conv.lin_nbr(nbr)
+        if i < len(model.convs) - 1:
+            x = torch.relu(x)
+    return x / x.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+
+def seeded_graphsage(seed: int):
+    """GraphSAGE(128 -> 128 -> 64, 2 layers) with weights drawn from a
+    fixed torch.Generator, uniform in +-1/sqrt(fan_in) like nn.Linear."""
+    from cugraph_tpu_torch.gnn import GraphSAGE
+
+    model = GraphSAGE(128, hidden_features=128, out_features=64, num_layers=2, device=DEV)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            fan_in = p.shape[-1] if p.dim() == 2 else 128
+            p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / fan_in**0.5)
+    return model
+
+
+def main_path(scale: int, seed: int) -> dict:
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    seconds = {}
+    for k in counters.values():
+        k.launches = 0
+
+    t = time.perf_counter()
+    g = rmat_graph(scale, seed)
+    sync()
+    seconds["graph"] = time.perf_counter() - t
+
+    model = seeded_graphsage(seed)
+    feats = torch.randn(g.num_vertices, 128, device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(seed + 2))
+
+    def graphsage():
+        with torch.no_grad():
+            return model(g, feats)
+
+    phases = {
+        "pagerank": lambda: ct.pagerank(g, tol=0.0, max_iterations=50),
+        "bfs": lambda: ct.bfs(g, 0),
+        "graphsage": graphsage,
+    }
+    results = {}
+    for name, fn in phases.items():
+        t = time.perf_counter()
+        results[name] = fn()
+        sync()
+        seconds[name] = time.perf_counter() - t
+    (pr, iters), (dist, pred), emb = results.values()
+
+    launches = {name: k.launches for name, k in counters.items()}
+    log(f"main path seconds: {json.dumps(seconds)}")
+    log(f"main path launches: {json.dumps(launches)}")
+    for name, n in launches.items():
+        require(n > 0, f"{name} was not launched on the main path")
+
+    # PageRank: sums to 1, matches the float64 reference
+    require(abs(float(pr.sum()) - 1.0) <= TOL_PAGERANK_SUM, f"pagerank sum {float(pr.sum())}")
+    ref = reference_pagerank(g, iters)
+    pr_err = (pr.double() - ref).abs().max().item()
+    require(pr_err <= TOL_PAGERANK_ABS, f"pagerank max abs error {pr_err}")
+    log(f"pagerank: {iters} iterations, max abs error {pr_err:.3e} vs float64 reference")
+
+    # BFS: equal to the reference BFS
+    rd, rp = reference_bfs(g, 0)
+    require(torch.equal(dist, rd), "bfs distances differ from the reference")
+    require(torch.equal(pred, rp), "bfs predecessors differ from the reference")
+    reached = int((dist < 2**31 - 1).sum())
+    levels = int(dist[dist < 2**31 - 1].max()) + 1
+    log(f"bfs: {reached} vertices reached, {levels} levels, equal to the reference")
+
+    # GraphSAGE: finite, (V, 64), matches the layers applied by hand
+    require(emb.shape == (g.num_vertices, 64), f"graphsage output shape {tuple(emb.shape)}")
+    require(bool(torch.isfinite(emb).all()), "graphsage output not finite")
+    with torch.no_grad():
+        sage_err = (emb - reference_graphsage(model, g, feats)).abs().max().item()
+    require(sage_err <= TOL_SAGE_ABS, f"graphsage max abs error {sage_err}")
+    log(f"graphsage: max abs error {sage_err:.3e} vs the layers applied by hand")
+    return dict(seconds=seconds, launches=launches, pagerank_iterations=iters,
+                pagerank_err=pr_err, bfs_levels=levels, bfs_reached=reached,
+                graphsage_err=sage_err, warm=warm_breakdown(phases))
+
+
+def warm_breakdown(phases) -> dict:
+    """Each algorithm phase once more, after the counted run: its wall
+    seconds warm, then its device time by kernel under torch.profiler.
+    The idle share is 1 - (device busy) / (profiled wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in phases.items():
+        t = time.perf_counter()
+        fn()
+        sync()
+        warm = time.perf_counter() - t
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            sync()
+            profiled = time.perf_counter() - t
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in device) / 1e6
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:5]
+        out[name] = dict(
+            warm_s=warm, profiled_s=profiled, device_busy_s=busy,
+            idle_share=1 - busy / profiled if busy else None,
+            top_kernels_ms=[[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
+        )
+        log(f"warm {name}: {json.dumps(out[name])}")
+    return out
+
+
+# ----------------------------------------------------------------- main
+
+SOURCES = {
+    "spmv_sum": ("cugraph_tpu_torch/csrc/spmv.cu", "cugraph_tpu/prims/pallas/spmv3.py:862"),
+    "spmv_minplus": ("cugraph_tpu_torch/csrc/spmv.cu", "cugraph_tpu/prims/pallas/spmv2.py:1675"),
+    "spmm_rows": ("cugraph_tpu_torch/csrc/spmm_row.cu", "cugraph_tpu/prims/pallas/spmm_row.py:225"),
+}
+ALSO_REPLACES = {
+    "spmv_sum": ["cugraph_tpu/prims/pallas/spmv2.py:1507", "cugraph_tpu/prims/pallas/spmv2.py:1582"],
+    "spmv_minplus": [
+        "cugraph_tpu/prims/pallas/spmv3.py:944",
+        "cugraph_tpu/prims/pallas/spmv2.py:1507",
+        "cugraph_tpu/prims/pallas/spmv2.py:1582",
+    ],
+    "spmm_rows": [],
+}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--scale", type=int, default=21, help="RMAT scale (default 21)")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    # float32 matmuls (the GraphSAGE linear layers and their reference) in
+    # full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 2. build
+    from cugraph_tpu_torch.prims.cuda import build
+
+    log(f"build: {build.build():.1f} s for {', '.join(build.SOURCES)}")
+    for name in build.SOURCES:
+        for line in build.compiler_report(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # 3. kernels against their plain versions
+    t = time.perf_counter()
+    small_graph_checks(args.seed)
+    g = rmat_graph(args.scale, args.seed)
+    kernels = full_shape_kernels(g, args.seed)
+    del g
+    torch.cuda.empty_cache()
+    log(f"kernel checks: {time.perf_counter() - t:.1f} s")
+
+    # 4. main path
+    path = main_path(args.scale, args.seed)
+
+    lines = []
+    for name, m in kernels.items():
+        source, replaces = SOURCES[name]
+        lines.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            also_replaces=ALSO_REPLACES[name], launches=path["launches"][name], **m,
+        ))
+    log(f"total: {time.perf_counter() - t_start:.1f} s after device setup")
+    print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
+                      "card": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

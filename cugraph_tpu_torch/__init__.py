@@ -1,0 +1,30 @@
+"""cugraph_tpu_torch: the PyTorch and CUDA port of cugraph_tpu for one
+NVIDIA H100 (Hopper, sm_90a).
+
+It keeps the JAX package's module names so that each counterpart is easy
+to find. The layers, from the entry points down:
+
+- ``core``       graph containers: renumbering, CSR/CSC built on the device.
+- ``generators`` R-MAT edge lists from a ``torch.Generator``.
+- ``algos``      PageRank and BFS.
+- ``gnn``        GraphSAGE/GCN aggregation and models (``nn.Module``).
+- ``prims``      the generic per-vertex reduce and the dense SpMM;
+  ``prims.cuda`` holds the hand-written CUDA kernels (``csrc/``):
+  ``spmv_sum``, ``spmv_minplus`` and ``spmm_rows``.
+
+Every entry point takes ``device=None``, which means the CUDA card, and
+raises ``RuntimeError`` when there is none; pass ``device="cpu"`` to run
+the kernels' plain versions on the CPU. Algorithms run on the graph's
+device.
+"""
+
+from . import utils
+from .algos import bfs, pagerank
+from .core import (
+    CompressedAdj,
+    Graph,
+    apply_renumber_map,
+    compute_renumber_map,
+    from_edgelist,
+)
+from .generators import rmat_edgelist, scramble_vertex_ids

@@ -1,0 +1,71 @@
+"""PageRank (and personalized PageRank) by power iteration.
+
+Counterpart of ``cugraph_tpu/algos/link_analysis.py`` (``pagerank``,
+``_pagerank_jit``; ref: cpp/src/link_analysis/pagerank_impl.cuh power
+iteration :209-295, dangling handling :218, convergence :287). Each
+iteration is one ``pull_aggregate``, which is the ``spmv_sum`` kernel on the
+card. The convergence test reads the L1 diff on the host once per
+iteration.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..core.csr import Graph
+from ..prims.cuda import pull_aggregate
+from ..utils.device import as_tensor
+from ..utils.dtypes import WEIGHT_DTYPE
+from ..utils.error import expects
+
+
+def pagerank(
+    g: Graph,
+    alpha: float = 0.85,
+    personalization: Optional[Tuple[object, object]] = None,
+    max_iterations: int = 100,
+    tol: float = 1.0e-6,
+    nstart=None,
+    fail_on_nonconvergence: bool = False,
+) -> Tuple[torch.Tensor, int]:
+    """PageRank scores (sum to 1) on the graph's device. Returns
+    (scores (V,) float32, iterations).
+
+    personalization: (vertex_ids, values) restricting the reset vector.
+    The loop runs while ``diff > V * tol`` and ``it < max_iterations``,
+    with diff the L1 change of one iteration (NetworkX/cuGraph semantics).
+    """
+    v = g.num_vertices
+    expects(v > 0, "empty graph")
+    dev = g.device
+    if personalization is not None:
+        ids, vals = personalization
+        reset = torch.zeros(v, dtype=WEIGHT_DTYPE, device=dev).index_add_(
+            0, as_tensor(ids, torch.int64, dev), as_tensor(vals, WEIGHT_DTYPE, dev)
+        )
+        total = reset.sum()
+        reset = reset / torch.where(total > 0, total, 1.0)
+    else:
+        reset = torch.full((v,), 1.0 / v, dtype=WEIGHT_DTYPE, device=dev)
+    if nstart is not None:
+        pr = as_tensor(nstart, WEIGHT_DTYPE, dev)
+        pr = pr / pr.sum()
+    else:
+        pr = torch.full((v,), 1.0 / v, dtype=WEIGHT_DTYPE, device=dev)
+    out_wsum = g.out_weight_sums()
+    dangling = out_wsum <= 0
+    inv_out = torch.where(dangling, 0.0, 1.0 / torch.where(dangling, 1.0, out_wsum))
+
+    diff, it = float("inf"), 0
+    while diff > v * tol and it < max_iterations:
+        agg = pull_aggregate(g, pr * inv_out)
+        # dangling mass is redistributed by the reset vector (ref :218)
+        dangling_sum = torch.where(dangling, pr, 0.0).sum()
+        new = alpha * (agg + dangling_sum * reset) + (1.0 - alpha) * reset
+        diff = float((new - pr).abs().sum())  # ref :278 L1 diff
+        pr, it = new, it + 1
+    if fail_on_nonconvergence:
+        expects(diff <= v * tol, "PageRank failed to converge")
+    return pr, it

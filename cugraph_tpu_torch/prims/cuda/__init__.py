@@ -1,0 +1,20 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+- spmv: ``spmv_sum`` and ``spmv_minplus`` over a CSC (csrc/spmv.cu).
+- spmm_row: ``spmm_rows`` over a CSC, f32 or bf16 operands (csrc/spmm_row.cu).
+- build: nvcc build into build/cugraph_tpu_torch/ and ctypes loading.
+
+Each wrapper launches its kernel for a CUDA tensor and takes its plain
+version (``*_reference``, same module) for a CPU tensor.
+"""
+
+import torch
+
+from .spmm_row import spmm_rows, spmm_rows_reference
+from .spmv import spmv_minplus, spmv_minplus_reference, spmv_sum, spmv_sum_reference
+
+
+def pull_aggregate(g, msg: torch.Tensor) -> torch.Tensor:
+    """out[v] = sum over incoming edges (u -> v) of w_uv * msg[u]; the
+    counterpart of ``cugraph_tpu/prims/pallas/__init__.py:pull_aggregate``."""
+    return spmv_sum(g.csc(), msg)

@@ -1,0 +1,86 @@
+"""spmv_sum and spmv_minplus: CSC SpMV kernels (csrc/spmv.cu) and their
+plain versions.
+
+    spmv_sum(adj, x)     y[d] = sum over edges s->d of w * x[s]
+    spmv_minplus(adj, x) y[d] = min over edges s->d of x[s] + w, +inf if none
+
+``adj`` is a CSC (``Graph.csc()``); w is the edge weight when
+``use_weights`` and the graph is weighted, else 1 (sum) or 0 (min). A CUDA
+tensor launches the kernel (and counts the launch in ``launches``); a CPU
+tensor takes the plain version. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...core.csr import CompressedAdj
+from . import build
+from ._launch import check_operands, ptr, raise_on_error, stream_of
+
+
+def _weights(adj: CompressedAdj, use_weights: bool) -> Optional[torch.Tensor]:
+    return adj.weights if use_weights else None
+
+
+def spmv_sum_reference(
+    adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True
+) -> torch.Tensor:
+    """Plain version of spmv_sum, in x's dtype, on any device."""
+    vals = x.index_select(0, adj.minors)
+    w = _weights(adj, use_weights)
+    if w is not None:
+        vals = vals * w.to(x.dtype)
+    y = torch.zeros(adj.num_majors, dtype=x.dtype, device=x.device)
+    return y.index_add_(0, adj.majors, vals)
+
+
+def spmv_minplus_reference(
+    adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True
+) -> torch.Tensor:
+    """Plain version of spmv_minplus, in x's dtype, on any device."""
+    w = _weights(adj, use_weights)
+    vals = x.index_select(0, adj.minors) + (0.0 if w is None else w.to(x.dtype))
+    y = torch.full((adj.num_majors,), float("inf"), dtype=x.dtype, device=x.device)
+    return y.scatter_reduce_(0, adj.majors.to(torch.int64), vals, "amin")
+
+
+def _launch(kernel: str, adj: CompressedAdj, x: torch.Tensor, use_weights: bool):
+    w = _weights(adj, use_weights)
+    check_operands(kernel, adj, x, w)
+    if x.dim() != 1:
+        raise ValueError(f"{kernel}: x must be 1-D, got shape {tuple(x.shape)}")
+    y = torch.empty(adj.num_majors, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = getattr(build.load("spmv"), f"cgt_{kernel}")(
+            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(y),
+            adj.num_majors, stream_of(x.device),
+        )
+    raise_on_error(kernel, rc)
+    return y
+
+
+def spmv_sum(adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True) -> torch.Tensor:
+    """y[d] = sum over in-edges s->d of w * x[s], f32."""
+    if x.device.type == "cpu":
+        return spmv_sum_reference(adj, x, use_weights=use_weights)
+    y = _launch("spmv_sum", adj, x, use_weights)
+    spmv_sum.launches += 1
+    return y
+
+
+def spmv_minplus(
+    adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True
+) -> torch.Tensor:
+    """y[d] = min over in-edges s->d of x[s] + w (+inf if none), f32, exact."""
+    if x.device.type == "cpu":
+        return spmv_minplus_reference(adj, x, use_weights=use_weights)
+    y = _launch("spmv_minplus", adj, x, use_weights)
+    spmv_minplus.launches += 1
+    return y
+
+
+spmv_sum.launches = 0
+spmv_minplus.launches = 0

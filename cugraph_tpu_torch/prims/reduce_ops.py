@@ -1,0 +1,48 @@
+"""Reduction monoids for the prims layer.
+
+Counterpart of ``cugraph_tpu/prims/reduce_ops.py`` (ref:
+cpp/src/prims/reduce_op.cuh). Each op carries its identity and its
+reduction by segment id: ``index_add_`` for the sum, ``scatter_reduce_``
+for min and max.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceOp:
+    name: str
+    scatter: str  # "sum" | "amin" | "amax"
+
+    def identity(self, dtype: torch.dtype):
+        if self.scatter == "sum":
+            return 0
+        info = torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)
+        if self.scatter == "amin":
+            return float("inf") if dtype.is_floating_point else info.max
+        return float("-inf") if dtype.is_floating_point else info.min
+
+    def segment(
+        self, values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+    ) -> torch.Tensor:
+        """out[s] = reduce over values[i] with segment_ids[i] == s; the
+        identity where a segment is empty. Reduces along dim 0."""
+        out = torch.full(
+            (num_segments,) + tuple(values.shape[1:]),
+            self.identity(values.dtype),
+            dtype=values.dtype,
+            device=values.device,
+        )
+        if self.scatter == "sum":
+            return out.index_add_(0, segment_ids, values)
+        idx = segment_ids.to(torch.int64).view((-1,) + (1,) * (values.dim() - 1))
+        return out.scatter_reduce_(0, idx.expand_as(values), values, self.scatter)
+
+
+PLUS = ReduceOp("plus", "sum")
+MINIMUM = ReduceOp("minimum", "amin")
+MAXIMUM = ReduceOp("maximum", "amax")

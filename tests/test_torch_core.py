@@ -1,0 +1,127 @@
+"""cugraph_tpu_torch core (renumber, CSR/CSC, R-MAT) against cugraph_tpu.
+
+Both packages get the same numpy edge list and must give EQUAL arrays:
+renumber maps, offsets, and minors/majors/weights on [:num_edges] (the JAX
+package pads edge arrays to 128 lanes; the port does not). R-MAT draws
+differ by construction (torch Philox vs JAX threefry), so the generator is
+checked for structure; the scrambling bijection is bit-equal.
+"""
+
+import networkx as nx
+import numpy as np
+import pytest
+import torch
+
+import cugraph_tpu as cg
+import cugraph_tpu_torch as ct
+from cugraph_tpu.core import renumber as jrn
+from cugraph_tpu.generators.rmat import rmat_edgelist as jax_rmat
+from cugraph_tpu.generators.rmat import scramble_vertex_ids as jax_scramble
+
+
+def _karate():
+    e = np.array(nx.karate_club_graph().edges(), dtype=np.int32)
+    return e[:, 0], e[:, 1], None, 34
+
+
+def _rmat_np(scale, edgefactor, seed, weighted):
+    """numpy R-MAT (a, b, c = .57, .19, .19): skewed, with multi-edges."""
+    rng = np.random.default_rng(seed)
+    e = edgefactor << scale
+    src = np.zeros(e, np.int64)
+    dst = np.zeros(e, np.int64)
+    for _ in range(scale):
+        sb = rng.random(e) < 0.38
+        db = rng.random(e) < np.where(sb, 0.19 / 0.38, 0.19 / 0.76)
+        src, dst = (src << 1) | sb, (dst << 1) | db
+    w = rng.random(e).astype(np.float32) + 0.5 if weighted else None
+    return src.astype(np.int32), dst.astype(np.int32), w, 1 << scale
+
+
+GRAPHS = {
+    "karate": _karate,
+    "rmat10": lambda: _rmat_np(10, 16, 0, False),
+    "rmat10w": lambda: _rmat_np(10, 16, 1, True),
+}
+
+
+@pytest.mark.parametrize("name", ["karate", "rmat10"])
+def test_renumber_equals_jax(name):
+    src, dst, _, v = GRAPHS[name]()
+    want = jrn.compute_renumber_map(src, dst, v)
+    got = ct.compute_renumber_map(src, dst, v, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    ws, wd = jrn.apply_renumber_map(want, src, dst)
+    gs, gd = ct.apply_renumber_map(got, src, dst, device="cpu")
+    np.testing.assert_array_equal(gs.numpy(), ws)
+    np.testing.assert_array_equal(gd.numpy(), wd)
+
+
+def _assert_adj_equal(got, want):
+    e = want.num_edges
+    assert got.num_edges == e and got.num_majors == want.num_majors
+    np.testing.assert_array_equal(got.offsets.numpy(), np.asarray(want.offsets))
+    np.testing.assert_array_equal(got.minors.numpy(), np.asarray(want.minors)[:e])
+    np.testing.assert_array_equal(got.majors.numpy(), np.asarray(want.majors)[:e])
+    if want.weights is None:
+        assert got.weights is None
+    else:
+        np.testing.assert_array_equal(got.weights.numpy(), np.asarray(want.weights)[:e])
+
+
+@pytest.mark.parametrize("name", ["karate", "rmat10", "rmat10w"])
+def test_from_edgelist_equals_jax(name):
+    src, dst, w, v = GRAPHS[name]()
+    jg = cg.from_edgelist(src, dst, w, num_vertices=v)
+    tg = ct.from_edgelist(src, dst, w, num_vertices=v, device="cpu")
+    assert tg.num_vertices == jg.num_vertices and tg.num_edges == jg.num_edges
+    _assert_adj_equal(tg.csr(), jg.csr())
+    _assert_adj_equal(tg.csc(), jg.csc())
+    np.testing.assert_array_equal(tg.in_degrees().numpy(), np.asarray(jg.in_degrees()))
+    np.testing.assert_array_equal(tg.out_degrees().numpy(), np.asarray(jg.out_degrees()))
+    # weighted sums: f32 adds in another order, so 1e-6 relative
+    np.testing.assert_allclose(
+        tg.out_weight_sums().numpy(), np.asarray(jg.out_weight_sums()), rtol=1e-6
+    )
+    np.testing.assert_allclose(
+        tg.in_weight_sums().numpy(), np.asarray(jg.in_weight_sums()), rtol=1e-6
+    )
+
+
+def test_from_edgelist_store_and_checks():
+    src, dst, _, v = _karate()
+    g = ct.from_edgelist(src, dst, num_vertices=v, store="in", device="cpu")
+    assert g.out_adj is None and g.csc().num_edges == len(src)
+    with pytest.raises(ct.utils.GraphError):
+        g.csr()
+    with pytest.raises(ct.utils.GraphError):
+        ct.from_edgelist(src, dst, num_vertices=10, device="cpu")
+
+
+def _top1pct_share(src, dst, v):
+    deg = np.bincount(src, minlength=v) + np.bincount(dst, minlength=v)
+    k = max(v // 100, 1)
+    return np.sort(deg)[::-1][:k].sum() / deg.sum()
+
+
+def test_rmat_structure_matches_jax_skew():
+    scale, e = 12, 16 << 12
+    s, d = ct.rmat_edgelist(scale, e, scramble=True, device="cpu")
+    assert s.shape == d.shape == (e,) and s.dtype == torch.int32
+    s, d = s.numpy(), d.numpy()
+    assert s.min() >= 0 and d.min() >= 0 and max(s.max(), d.max()) < 1 << scale
+    js, jd = (np.asarray(a) for a in jax_rmat(scale, e, scramble=True))
+    got, want = _top1pct_share(s, d, 1 << scale), _top1pct_share(js, jd, 1 << scale)
+    # same distribution, other random bits: the top-1% degree share agrees
+    # within 10% (it is ~0.28 here; uniform ids would give ~0.015)
+    assert abs(got - want) < 0.1 * want, (got, want)
+    g = torch.Generator().manual_seed(0)
+    s2, _ = ct.rmat_edgelist(scale, e, scramble=True, generator=g, device="cpu")
+    np.testing.assert_array_equal(s2.numpy(), s)  # the default seed is 0
+
+
+def test_scramble_equals_jax():
+    ids = np.arange(1 << 12, dtype=np.int32)
+    got = ct.scramble_vertex_ids(torch.from_numpy(ids), 12).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_scramble(ids, 12)))
+    assert np.array_equal(np.sort(got), ids)  # a bijection

@@ -1,0 +1,80 @@
+"""Rules of the cugraph_tpu_torch package.
+
+- It and chip_smoke.py import nothing of jax, flax or cugraph_tpu.
+- device=None means CUDA: without CUDA every entry point raises
+  RuntimeError instead of running on the CPU.
+- CPU tensors take the kernels' plain versions: no launch is counted.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import cugraph_tpu_torch as ct
+from cugraph_tpu_torch.gnn import GCN, GraphSAGE
+from cugraph_tpu_torch.prims.cuda import (
+    pull_aggregate,
+    spmm_rows,
+    spmv_minplus,
+    spmv_sum,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "cugraph_tpu")
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = sorted((ROOT / "cugraph_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [
+        (str(f.relative_to(ROOT)), mod)
+        for f in files
+        for mod in _imported_roots(f)
+        if mod in FORBIDDEN
+    ]
+    assert bad == []
+
+
+ENTRY_POINTS = {
+    "from_edgelist": lambda: ct.from_edgelist([0, 1], [1, 0]),
+    "rmat_edgelist": lambda: ct.rmat_edgelist(4, 16),
+    "compute_renumber_map": lambda: ct.compute_renumber_map([0, 1], [1, 0]),
+    "apply_renumber_map": lambda: ct.apply_renumber_map([1, 0], [0, 1]),
+    "GraphSAGE": lambda: GraphSAGE(8),
+    "GCN": lambda: GCN(8),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_default_device_without_cuda_raises(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ENTRY_POINTS[name]()
+
+
+def test_cpu_tensors_launch_no_kernel():
+    counters = (spmv_sum, spmv_minplus, spmm_rows)
+    before = [fn.launches for fn in counters]
+    rng = np.random.default_rng(0)
+    g = ct.from_edgelist(rng.integers(0, 50, 300), rng.integers(0, 50, 300),
+                         num_vertices=50, device="cpu")
+    x = torch.from_numpy(rng.random(50).astype(np.float32))
+    spmv_sum(g.csc(), x)
+    pull_aggregate(g, x)
+    spmv_minplus(g.csc(), x)
+    spmm_rows(g.csc(), x[:, None].repeat(1, 8), precision="bf16")
+    ct.pagerank(g, max_iterations=3)
+    ct.bfs(g, 0)
+    assert [fn.launches for fn in counters] == before == [0, 0, 0]
