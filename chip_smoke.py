@@ -15,6 +15,13 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    bfs(0) -> 2-layer GraphSAGE forward (F = 128 -> 128 -> 64), each held
    against a reference computed here from the plain versions. The launch
    counters are set to 0 just before and read just after.
+5. Weighted path on the same graph with weights in (0, 1]: spmv_sum and
+   spmv_minplus checked and timed on its CSC, then katz, eigenvector,
+   hits, pagerank(tol=0, 20 iterations), sssp(0), betweenness and edge
+   betweenness (k=8), degree centrality and extract_bfs_paths, each
+   with its launch counters set to 0 just before and read just after,
+   and each held against a float64 (or, for SSSP, bit-exact f32)
+   reference computed here from the plain versions.
 
 The line before the last is one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}. Without CUDA the script exits
@@ -44,6 +51,14 @@ TOL_SUM_REL = 1e-5  # spmv_sum, spmm_rows f32 / bf16 vs float64 plain version
 TOL_PAGERANK_ABS = 1e-6
 TOL_PAGERANK_SUM = 1e-4
 TOL_SAGE_ABS = 1e-4
+# Katz, eigenvector, HITS and weighted PageRank in f32 vs float64 after
+# the same iterations: positive sums of up to ~1e5 terms a row, max abs
+# error over max |ref|
+TOL_CENTRALITY_REL = 1e-5
+# betweenness in f32 vs float64 on the same sources: atomic f32 sums of up
+# to ~1e6 positive terms a vertex (n eps worst, sqrt(n) eps typical), max
+# abs error over max |ref|
+TOL_BETWEENNESS_REL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -79,9 +94,11 @@ def median_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------- graphs
 
 
-def rmat_graph(scale: int, seed: int):
+def rmat_graph(scale: int, seed: int, weighted: bool = False):
     """The main path's graph: R-MAT edgefactor 16, scrambled, renumbered
-    by descending degree, CSR + CSC on the card."""
+    by descending degree, CSR + CSC on the card. weighted: weights
+    1 - U[0, 1) in (0, 1], so that Katz's default alpha bounds the
+    spectral radius."""
     import cugraph_tpu_torch as ct
 
     v = 1 << scale
@@ -89,7 +106,11 @@ def rmat_graph(scale: int, seed: int):
     src, dst = ct.rmat_edgelist(scale, 16 * v, scramble=True, generator=gen, device=DEV)
     new_to_old = ct.compute_renumber_map(src, dst, v, device=DEV)
     src, dst = ct.apply_renumber_map(new_to_old, src, dst, device=DEV)
-    return ct.from_edgelist(src, dst, num_vertices=v, device=DEV)
+    w = None
+    if weighted:
+        wgen = torch.Generator(device=DEV).manual_seed(seed + 3)
+        w = 1.0 - torch.rand(src.numel(), generator=wgen, device=DEV)
+    return ct.from_edgelist(src, dst, w, num_vertices=v, device=DEV)
 
 
 def skewed_graph(seed: int, v: int = 5000, e: int = 60000, weighted: bool = True):
@@ -184,6 +205,61 @@ def bound(bytes_moved: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sparse_csr(adj):
+    """adj as a torch sparse CSR tensor, the library call's operand."""
+    e = adj.num_edges
+    vals = adj.weights if adj.weights is not None else torch.ones(e, device=DEV)
+    return torch.sparse_csr_tensor(adj.offsets, adj.minors, vals,
+                                   size=(adj.num_majors, adj.num_minors))
+
+
+def weighted_full_shape_kernels(g, seed: int) -> dict:
+    """spmv_sum (kernel #11's function, and #3's) and spmv_minplus (#4's)
+    on the weighted CSC at full shape: check, time, bound."""
+    from cugraph_tpu_torch.prims.cuda import (
+        spmv_minplus,
+        spmv_minplus_reference,
+        spmv_sum,
+        spmv_sum_reference,
+    )
+
+    adj = g.csc()
+    v, e = g.num_vertices, g.num_edges
+    n_src = int((g.out_degrees() > 0).sum())
+    # offsets, minors, weights, 4 B per source with an out-edge, and y
+    b_ms, b_by = bound(4 * (v + 1) + 8 * e + 4 * n_src + 4 * v, 2 * e)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    lib_a = sparse_csr(adj)
+    out = {}
+
+    # spmv_sum: a Katz / PageRank message, positive
+    x = torch.rand(v, generator=gen, device=DEV) / v
+    err = check_spmv_sum(adj, x)
+    out["spmv_sum"] = dict(
+        replaces="cugraph_tpu/prims/pallas/spmv.py:194",
+        max_abs_err=err, tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
+        ms=median_ms(lambda: spmv_sum(adj, x), 20),
+        plain_ms=median_ms(lambda: spmv_sum_reference(adj, x), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
+    )
+
+    # spmv_minplus: an SSSP sweep, finite distances on a tenth of the
+    # vertices, +inf elsewhere
+    xd = torch.where(torch.rand(v, generator=gen, device=DEV) < 0.1,
+                     4 * torch.rand(v, generator=gen, device=DEV), float("inf"))
+    err = check_spmv_minplus(adj, xd)
+    out["spmv_minplus"] = dict(
+        replaces="cugraph_tpu/prims/pallas/spmv2.py:1675",
+        max_abs_err=err, tol="bit-exact, +inf pattern equal",
+        ms=median_ms(lambda: spmv_minplus(adj, xd), 20),
+        plain_ms=median_ms(lambda: spmv_minplus_reference(adj, xd), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    log(f"weighted full-shape kernels (V={v}, E={e}): checks ok")
+    return out
+
+
 def full_shape_kernels(g, seed: int) -> dict:
     """Each kernel at the main path's shapes: check, time, bound."""
     from cugraph_tpu_torch.prims.cuda import (
@@ -201,11 +277,7 @@ def full_shape_kernels(g, seed: int) -> dict:
     w_bytes = 0 if adj.weights is None else 4 * e
     graph_bytes = 4 * (v + 1) + 4 * e + w_bytes
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
-    lib_a = torch.sparse_csr_tensor(
-        adj.offsets, adj.minors,
-        adj.weights if adj.weights is not None else torch.ones(e, device=DEV),
-        size=(v, v),
-    )
+    lib_a = sparse_csr(adj)
     out = {}
 
     # spmv_sum: PageRank's message, pr / out-degree, is positive
@@ -428,6 +500,216 @@ def warm_breakdown(phases) -> dict:
     return out
 
 
+# -------------------------------------------------------- weighted path
+
+
+def reference_katz(g, iterations: int) -> torch.Tensor:
+    """Katz with the default alpha and beta = 1, the same iterations in
+    float64 over spmv_sum_reference, L2-normalized."""
+    from cugraph_tpu_torch.prims.cuda import spmv_sum_reference
+
+    alpha = 1.0 / (int(g.out_degrees().max()) + 1)
+    x = torch.zeros(g.num_vertices, dtype=torch.float64, device=DEV)
+    for _ in range(iterations):
+        x = alpha * spmv_sum_reference(g.csc(), x) + 1.0
+    return x / x.norm()
+
+
+def reference_eigenvector(g, iterations: int) -> torch.Tensor:
+    from cugraph_tpu_torch.prims.cuda import spmv_sum_reference
+
+    x = torch.full((g.num_vertices,), 1.0 / g.num_vertices, dtype=torch.float64, device=DEV)
+    for _ in range(iterations):
+        x = spmv_sum_reference(g.csc(), x) + x
+        x = x / x.norm()
+    return x
+
+
+def reference_hits(g, iterations: int):
+    """(hubs, authorities), the same iterations in float64, each
+    half-step max-normalized, then sum-normalized."""
+    from cugraph_tpu_torch.prims.cuda import spmv_sum_reference
+
+    h = torch.full((g.num_vertices,), 1.0 / g.num_vertices, dtype=torch.float64, device=DEV)
+    a = torch.zeros_like(h)
+    for _ in range(iterations):
+        a = spmv_sum_reference(g.csc(), h)
+        a = a / a.max().clamp(min=1e-30)
+        h = spmv_sum_reference(g.csr(), a)
+        h = h / h.max().clamp(min=1e-30)
+    return h / h.sum().clamp(min=1e-30), a / a.sum().clamp(min=1e-30)
+
+
+def reference_sssp(g, source: int):
+    """Bellman-Ford over spmv_minplus_reference in f32 until no distance
+    changes; predecessors: the smallest src among the tree edges."""
+    from cugraph_tpu_torch.prims.cuda import spmv_minplus_reference
+
+    v = g.num_vertices
+    csc = g.csc()
+    dist = torch.full((v,), float("inf"), device=DEV)
+    dist[source] = 0.0
+    while True:
+        new = torch.minimum(dist, spmv_minplus_reference(csc, dist))
+        if not bool((new < dist).any()):
+            break
+        dist = new
+    s, d = csc.minors.long(), csc.majors.long()
+    tree = torch.isfinite(dist[d]) & (dist[s] + csc.weights == dist[d]) & (d != source)
+    pred = torch.full((v,), v, dtype=torch.int64, device=DEV)
+    pred.scatter_reduce_(0, d[tree], s[tree], "amin")
+    return dist, torch.where(pred < v, pred, -1).to(torch.int32)
+
+
+def reference_brandes(g, sources):
+    """Brandes one source at a time in float64 over the CSR, with the
+    frontier's edges compacted: (sum of vertex dependencies (V,), sum of
+    edge dependencies (E,)), unweighted shortest paths."""
+    v = g.num_vertices
+    csr = g.csr()
+    s_ids, d_ids = csr.majors.long(), csr.minors.long()
+    delta_sum = torch.zeros(v, dtype=torch.float64, device=DEV)
+    edge_sum = torch.zeros(g.num_edges, dtype=torch.float64, device=DEV)
+    for src in sources.tolist():
+        dist = torch.full((v,), -1, dtype=torch.int64, device=DEV)
+        dist[src] = 0
+        sigma = torch.zeros(v, dtype=torch.float64, device=DEV)
+        sigma[src] = 1.0
+        frontier, level = dist == 0, 0
+        while bool(frontier.any()):
+            e = (frontier[s_ids] & (dist[d_ids] < 0)).nonzero().squeeze(1)
+            add = torch.zeros_like(sigma).index_add_(0, d_ids[e], sigma[s_ids[e]])
+            frontier = add > 0
+            level += 1
+            dist[frontier] = level
+            sigma += add
+        delta = torch.zeros_like(sigma)
+        for d in range(level - 1, -1, -1):
+            e = ((dist[s_ids] == d) & (dist[d_ids] == d + 1)).nonzero().squeeze(1)
+            c = sigma[s_ids[e]] / sigma[d_ids[e]] * (1.0 + delta[d_ids[e]])
+            edge_sum.index_add_(0, e, c)
+            delta.index_add_(0, s_ids[e], c)
+        delta[src] = 0.0
+        delta_sum += delta
+    return delta_sum, edge_sum
+
+
+def rel_err(got, ref) -> float:
+    return ((got.double() - ref).abs().max() / ref.abs().max().clamp(min=1e-300)).item()
+
+
+def weighted_path(g, seed: int) -> dict:
+    """The link-analysis, centrality and traversal surface on the weighted
+    graph, one phase at a time, each with its own launch counts."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.algos.centrality import sample_sources
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    v = g.num_vertices
+    k = 8
+    torch.cuda.reset_peak_memory_stats()
+    phases = {
+        "katz": lambda: ct.katz_centrality(g),
+        "eigenvector": lambda: ct.eigenvector_centrality(g),
+        "hits": lambda: ct.hits(g),
+        "pagerank": lambda: ct.pagerank(g, tol=0.0, max_iterations=20),
+        "sssp": lambda: ct.sssp(g, 0),
+        "betweenness": lambda: ct.betweenness_centrality(g, k=k, seed=seed),
+        "edge_betweenness": lambda: ct.edge_betweenness_centrality(g, k=k, seed=seed),
+        "degree": lambda: ct.degree_centrality(g),
+    }
+    seconds, launches, results = {}, {}, {}
+
+    def run(name, fn):
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        results[name] = fn()
+        sync()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = {n: c.launches for n, c in counters.items()}
+
+    for name, fn in list(phases.items()):
+        run(name, fn)
+        if name == "sssp":
+            dist, pred = results["sssp"]
+            # the four farthest reached vertices: the longest paths
+            dests = torch.topk(torch.where(torch.isfinite(dist), dist, -1.0), 4).indices
+            phases["paths"] = lambda: ct.extract_bfs_paths(g, dist, pred, dests)
+            run("paths", phases["paths"])
+    log(f"weighted path seconds: {json.dumps(seconds)}")
+    log(f"weighted path launches: {json.dumps(launches)}")
+    for name in ("katz", "eigenvector", "hits", "pagerank"):
+        require(launches[name]["spmv_sum"] > 0, f"spmv_sum was not launched by {name}")
+    require(launches["sssp"]["spmv_minplus"] > 0, "spmv_minplus was not launched by sssp")
+    out = dict(seconds=seconds, launches=launches)
+
+    # Katz, eigenvector, HITS, PageRank: the same iterations in float64
+    x, it = results["katz"]
+    out["katz"] = dict(iterations=it, rel_err=rel_err(x, reference_katz(g, it)))
+    x, it = results["eigenvector"]
+    out["eigenvector"] = dict(iterations=it, rel_err=rel_err(x, reference_eigenvector(g, it)))
+    h, a, it = results["hits"]
+    rh, ra = reference_hits(g, it)
+    out["hits"] = dict(iterations=it, rel_err=max(rel_err(h, rh), rel_err(a, ra)))
+    for name in ("katz", "eigenvector", "hits"):
+        err = out[name]["rel_err"]
+        require(err <= TOL_CENTRALITY_REL, f"{name} error {err} > {TOL_CENTRALITY_REL}")
+    pr, it = results["pagerank"]
+    ref = reference_pagerank(g, it)
+    pr_err = rel_err(pr, ref)
+    require(pr_err <= TOL_CENTRALITY_REL,
+            f"weighted pagerank error {pr_err} > {TOL_CENTRALITY_REL}")
+    out["pagerank"] = dict(iterations=it, rel_err=pr_err,
+                           max_abs_err=(pr.double() - ref).abs().max().item(),
+                           max_ref=ref.abs().max().item())
+
+    # SSSP: distances bit-equal, predecessors equal to the post-pass rule
+    # and on tree edges
+    rd, rp = reference_sssp(g, 0)
+    require(torch.equal(dist, rd), "sssp distances differ from Bellman-Ford")
+    require(torch.equal(pred, rp), "sssp predecessors differ from the tree-edge rule")
+    csc = g.csc()
+    s, d = csc.minors.long(), csc.majors.long()
+    tree = (s == pred[d].long()) & (dist[s] + csc.weights == dist[d])
+    has = torch.zeros(v, dtype=torch.bool, device=DEV)
+    has[d[tree]] = True
+    want = torch.isfinite(dist)
+    want[0] = False
+    require(torch.equal(has, want), "a reached vertex has no tree edge from its predecessor")
+    out["sssp"] = dict(reached=int(torch.isfinite(dist).sum()),
+                       max_dist=float(dist[torch.isfinite(dist)].max()))
+
+    # extract_bfs_paths: each row walks the predecessors back from its
+    # destination, -1 before the start
+    paths, max_len = results["paths"]
+    require(max_len == int(dist[dests].max()) + 1, "path length")
+    cur = dests.to(torch.int32)
+    for j in range(max_len - 1, -1, -1):
+        require(torch.equal(paths[:, j], cur), f"path column {j}")
+        cur = torch.where(cur >= 0, pred[cur.clamp(min=0).long()], -1)
+    out["paths"] = dict(destinations=dests.tolist(), max_len=max_len)
+
+    # betweenness and edge betweenness: the same sources in float64
+    sources = sample_sources(v, k, seed, DEV)
+    delta, edge = reference_brandes(g, sources)
+    bc_err = rel_err(results["betweenness"], delta * (v / k) / ((v - 1) * (v - 2)))
+    ebc_err = rel_err(results["edge_betweenness"], edge * (v / k) / (v * (v - 1)))
+    for name, err in (("betweenness", bc_err), ("edge betweenness", ebc_err)):
+        require(err <= TOL_BETWEENNESS_REL, f"{name} error {err} > {TOL_BETWEENNESS_REL}")
+    out["betweenness"] = dict(k=k, sources=sources.tolist(), rel_err=bc_err,
+                              edge_rel_err=ebc_err)
+
+    # degree: (in + out) / (V - 1), equal
+    deg = (g.out_degrees() + g.in_degrees()).float() / (v - 1)
+    require(torch.equal(results["degree"], deg), "degree centrality")
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"weighted path checks: {json.dumps({n: out[n] for n in out if n not in ('seconds', 'launches')})}")
+    out["warm"] = warm_breakdown(phases)
+    return out
+
+
 # ----------------------------------------------------------------- main
 
 SOURCES = {
@@ -436,7 +718,11 @@ SOURCES = {
     "spmm_rows": ("cugraph_tpu_torch/csrc/spmm_row.cu", "cugraph_tpu/prims/pallas/spmm_row.py:225"),
 }
 ALSO_REPLACES = {
-    "spmv_sum": ["cugraph_tpu/prims/pallas/spmv2.py:1507", "cugraph_tpu/prims/pallas/spmv2.py:1582"],
+    "spmv_sum": [
+        "cugraph_tpu/prims/pallas/spmv2.py:1507",
+        "cugraph_tpu/prims/pallas/spmv2.py:1582",
+        "cugraph_tpu/prims/pallas/spmv.py:194",
+    ],
     "spmv_minplus": [
         "cugraph_tpu/prims/pallas/spmv3.py:944",
         "cugraph_tpu/prims/pallas/spmv2.py:1507",
@@ -487,17 +773,28 @@ def main() -> int:
 
     # 4. main path
     path = main_path(args.scale, args.seed)
+    torch.cuda.empty_cache()
+
+    # 5. weighted path
+    g = rmat_graph(args.scale, args.seed, weighted=True)
+    weighted = weighted_full_shape_kernels(g, args.seed)
+    wpath = weighted_path(g, args.seed)
+    del g
 
     lines = []
     for name, m in kernels.items():
         source, replaces = SOURCES[name]
+        by_path = dict(main_path=path["launches"][name],
+                       weighted_path=sum(n[name] for n in wpath["launches"].values()))
+        extra = {"weighted": weighted[name]} if name in weighted else {}
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            also_replaces=ALSO_REPLACES[name], launches=path["launches"][name], **m,
+            also_replaces=ALSO_REPLACES[name], launches=path["launches"][name],
+            launches_by_path=by_path, **m, **extra,
         ))
     log(f"total: {time.perf_counter() - t_start:.1f} s after device setup")
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
-                      "card": smi}))
+                      "weighted_path": wpath, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

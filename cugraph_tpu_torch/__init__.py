@@ -4,11 +4,14 @@ NVIDIA H100 (Hopper, sm_90a).
 It keeps the JAX package's module names so that each counterpart is easy
 to find. The layers, from the entry points down:
 
-- ``core``       graph containers: renumbering, CSR/CSC built on the device.
+- ``core``       graph containers: renumbering, symmetrization, CSR/CSC
+  built on the device, decompress and transpose.
 - ``generators`` R-MAT edge lists from a ``torch.Generator``.
-- ``algos``      PageRank and BFS.
+- ``algos``      PageRank, HITS, Katz, eigenvector, degree and betweenness
+  centrality, BFS, SSSP, path extraction, two-hop neighbors.
 - ``gnn``        GraphSAGE/GCN aggregation and models (``nn.Module``).
-- ``prims``      the generic per-vertex reduce and the dense SpMM;
+- ``prims``      the generic per-vertex reduce, the frontier push and the
+  dense SpMM;
   ``prims.cuda`` holds the hand-written CUDA kernels (``csrc/``):
   ``spmv_sum``, ``spmv_minplus`` and ``spmm_rows``.
 
@@ -19,7 +22,18 @@ device.
 """
 
 from . import utils
-from .algos import bfs, pagerank
+from .algos import (
+    betweenness_centrality,
+    bfs,
+    degree_centrality,
+    edge_betweenness_centrality,
+    eigenvector_centrality,
+    extract_bfs_paths,
+    hits,
+    katz_centrality,
+    pagerank,
+    sssp,
+)
 from .core import (
     CompressedAdj,
     Graph,

@@ -1,11 +1,13 @@
-"""PageRank (and personalized PageRank) by power iteration.
+"""Link analysis: PageRank (and personalized PageRank) and HITS.
 
 Counterpart of ``cugraph_tpu/algos/link_analysis.py`` (``pagerank``,
-``_pagerank_jit``; ref: cpp/src/link_analysis/pagerank_impl.cuh power
-iteration :209-295, dangling handling :218, convergence :287). Each
-iteration is one ``pull_aggregate``, which is the ``spmv_sum`` kernel on the
-card. The convergence test reads the L1 diff on the host once per
-iteration.
+``_pagerank_jit``, ``hits``, ``_hits_jit``; ref:
+cpp/src/link_analysis/pagerank_impl.cuh power iteration :209-295, dangling
+handling :218, convergence :287, and hits_impl.cuh). Each PageRank
+iteration is one ``pull_aggregate``, and each HITS iteration one
+``pull_aggregate`` and one ``push_aggregate``: the ``spmv_sum`` kernel over
+the CSC and the CSR on the card. The convergence test reads the L1 diff on
+the host once per iteration.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.csr import Graph
-from ..prims.cuda import pull_aggregate
+from ..prims.cuda import pull_aggregate, push_aggregate
 from ..utils.device import as_tensor
 from ..utils.dtypes import WEIGHT_DTYPE
 from ..utils.error import expects
@@ -69,3 +71,40 @@ def pagerank(
     if fail_on_nonconvergence:
         expects(diff <= v * tol, "PageRank failed to converge")
     return pr, it
+
+
+def hits(
+    g: Graph,
+    max_iterations: int = 100,
+    tol: float = 1.0e-5,
+    nstart=None,
+    normalized: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """HITS hubs and authorities on the graph's device. Returns (hubs,
+    authorities, iterations).
+
+    Each iteration pulls authorities from hubs over the in-edges and pushes
+    hubs back from authorities over the out-edges, each step divided by its
+    max (floored at 1e-30); the loop runs while the L1 change of the hubs
+    exceeds ``tol``. normalized: both vectors are divided by their sums.
+    """
+    v = g.num_vertices
+    dev = g.device
+    if nstart is not None:
+        h = as_tensor(nstart, WEIGHT_DTYPE, dev)
+    else:
+        h = torch.full((v,), 1.0 / v, dtype=WEIGHT_DTYPE, device=dev)
+    a = torch.zeros(v, dtype=WEIGHT_DTYPE, device=dev)
+    diff, it = float("inf"), 0
+    while diff > tol and it < max_iterations:
+        # ref hits_impl.cuh: authority = A^T hub, hub = A authority
+        a = pull_aggregate(g, h)
+        a = a / a.max().clamp(min=1e-30)
+        h_new = push_aggregate(g, a)
+        h_new = h_new / h_new.max().clamp(min=1e-30)
+        diff = float((h_new - h).abs().sum())
+        h, it = h_new, it + 1
+    if normalized:
+        h = h / h.sum().clamp(min=1e-30)
+        a = a / a.sum().clamp(min=1e-30)
+    return h, a, it

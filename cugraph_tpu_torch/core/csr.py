@@ -7,6 +7,7 @@ stay, keep their input order, and their weights follow.
 
 The JAX package pads edge arrays to 128 lanes for XLA's static shapes; the
 port keeps exact lengths, so every edge array has ``num_edges`` entries.
+A symmetric graph shares one adjacency as its CSR and its CSC.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ..utils.device import DeviceLike, as_tensor, resolve_device
 from ..utils.dtypes import EDGE_DTYPE, VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects
+from .symmetrize import symmetrize_edgelist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +71,19 @@ class Graph:
 
     ``out_adj``: compressed by src (edges of a vertex = its outgoing edges).
     ``in_adj``:  compressed by dst (edges of a vertex = its incoming edges).
+    Symmetric graphs share one structure for both.
     """
 
     out_adj: Optional[CompressedAdj]
     in_adj: Optional[CompressedAdj]
     num_vertices: int
     num_edges: int
+    is_symmetric: bool = False
+
+    @property
+    def weighted(self) -> bool:
+        adj = self.out_adj if self.out_adj is not None else self.in_adj
+        return adj is not None and adj.weights is not None
 
     @property
     def device(self) -> torch.device:
@@ -87,12 +96,15 @@ class Graph:
         return self.out_adj
 
     def csc(self) -> CompressedAdj:
-        """In-adjacency (major = dst)."""
+        """In-adjacency (major = dst); the shared adjacency of a symmetric
+        graph stored without one."""
+        if self.in_adj is not None:
+            return self.in_adj
         expects(
-            self.in_adj is not None,
+            self.is_symmetric and self.out_adj is not None,
             "graph stored without in-adjacency; rebuild with store='both'",
         )
-        return self.in_adj
+        return self.out_adj
 
     # ref: graph_view_t::compute_in_degrees/out_degrees, graph_view.hpp:671-686
     def out_degrees(self) -> torch.Tensor:
@@ -122,7 +134,10 @@ def from_edgelist(
     weight=None,
     *,
     num_vertices: Optional[int] = None,
+    symmetrize: bool = False,
     store: str = "both",
+    is_symmetric: Optional[bool] = None,
+    multi: bool = False,
     device: DeviceLike = None,
 ) -> Graph:
     """Build a Graph from a COO edge list of contiguous int vertex ids.
@@ -130,6 +145,10 @@ def from_edgelist(
     src, dst and weight may be numpy arrays, sequences or tensors; they are
     moved to ``device`` (default: the CUDA card) and compressed there.
     store: "both", "out" (CSR only) or "in" (CSC only).
+    symmetrize=True unions each edge with its reciprocal (and coalesces
+    duplicates unless ``multi``, ``core/symmetrize.py``); the graph is then
+    symmetric, as it is when ``is_symmetric`` says so, and one adjacency
+    serves as CSR and CSC.
     """
     expects(store in ("both", "out", "in"), f"unknown store {store!r}")
     dev = resolve_device(device)
@@ -147,14 +166,21 @@ def from_edgelist(
     if num_vertices is None:
         num_vertices = hi + 1
     expects(lo >= 0 and hi < num_vertices, "vertex id out of range [0, num_vertices)")
+    if symmetrize:
+        src, dst, weight = symmetrize_edgelist(src, dst, weight, multi=multi, device=dev)
+    sym = bool(symmetrize or is_symmetric)
     out_adj = in_adj = None
     if store in ("both", "out"):
         out_adj = _build_adj(src, dst, weight, num_vertices, num_vertices)
     if store in ("both", "in"):
-        in_adj = _build_adj(dst, src, weight, num_vertices, num_vertices)
+        if sym and out_adj is not None:
+            in_adj = out_adj
+        else:
+            in_adj = _build_adj(dst, src, weight, num_vertices, num_vertices)
     return Graph(
         out_adj=out_adj,
         in_adj=in_adj,
         num_vertices=int(num_vertices),
         num_edges=int(src.numel()),
+        is_symmetric=sym,
     )

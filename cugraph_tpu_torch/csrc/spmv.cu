@@ -4,7 +4,10 @@
 //   spmv_sum:     spmv3.py:_keyed_reduce_call (862), with the
 //                 spmv2.py:_expand_call (1507) and _slab_benes_call (1582)
 //                 stages in front of it fused in; also covers
-//                 spmv2.py:_sort_reduce_call (1675) reduce="sum".
+//                 spmv2.py:_sort_reduce_call (1675) reduce="sum" and, with
+//                 weights, the v1 windowed pull SpMV spmv.py:_make_reduce_kernel
+//                 (194, via pull_spmv 224 / 260), whose XLA gather of
+//                 x[src] * w in front of it is fused in the same way.
 //   spmv_minplus: spmv2.py:_sort_reduce_call (1675) reduce="min" and
 //                 spmv3.py:_keyed_min_call (944), with the min-variant
 //                 _expand_call and _slab_benes_call fused in.

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
-- spmv: ``spmv_sum`` and ``spmv_minplus`` over a CSC (csrc/spmv.cu).
+- spmv: ``spmv_sum`` and ``spmv_minplus`` over a CSC or CSR (csrc/spmv.cu).
 - spmm_row: ``spmm_rows`` over a CSC, f32 or bf16 operands (csrc/spmm_row.cu).
 - build: nvcc build into build/cugraph_tpu_torch/ and ctypes loading.
 
@@ -16,5 +16,14 @@ from .spmv import spmv_minplus, spmv_minplus_reference, spmv_sum, spmv_sum_refer
 
 def pull_aggregate(g, msg: torch.Tensor) -> torch.Tensor:
     """out[v] = sum over incoming edges (u -> v) of w_uv * msg[u]; the
-    counterpart of ``cugraph_tpu/prims/pallas/__init__.py:pull_aggregate``."""
+    counterpart of ``cugraph_tpu/prims/pallas/__init__.py:pull_aggregate``,
+    whose "sorted" (keyed) and "v1" (``spmv.py:pull_spmv``) engines both
+    compute this one function, ``spmv_sum`` over the CSC."""
     return spmv_sum(g.csc(), msg)
+
+
+def push_aggregate(g, msg: torch.Tensor) -> torch.Tensor:
+    """out[u] = sum over outgoing edges (u -> v) of w_uv * msg[v]:
+    ``spmv_sum`` over the CSR, the counterpart of the JAX package's
+    direction="out" layout (HITS' hub step)."""
+    return spmv_sum(g.csr(), msg)

@@ -1,10 +1,11 @@
-"""spmv_sum and spmv_minplus: CSC SpMV kernels (csrc/spmv.cu) and their
-plain versions.
+"""spmv_sum and spmv_minplus: SpMV kernels (csrc/spmv.cu) and their plain
+versions.
 
     spmv_sum(adj, x)     y[d] = sum over edges s->d of w * x[s]
     spmv_minplus(adj, x) y[d] = min over edges s->d of x[s] + w, +inf if none
 
-``adj`` is a CSC (``Graph.csc()``); w is the edge weight when
+``adj`` is a CSC (``Graph.csc()``), or a CSR for the push direction, where
+the roles of s and d swap; w is the edge weight when
 ``use_weights`` and the graph is weighted, else 1 (sum) or 0 (min). A CUDA
 tensor launches the kernel (and counts the launch in ``launches``); a CPU
 tensor takes the plain version. There is no fallback from one to the other.
@@ -63,7 +64,9 @@ def _launch(kernel: str, adj: CompressedAdj, x: torch.Tensor, use_weights: bool)
 
 
 def spmv_sum(adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True) -> torch.Tensor:
-    """y[d] = sum over in-edges s->d of w * x[s], f32."""
+    """y[d] = sum over in-edges s->d of w * x[s], f32. Carries the TPU's
+    keyed reduce (``spmv3.py:862``) and, weighted, the v1 windowed pull
+    SpMV (``spmv.py:194``, ``pull_spmv`` 224 / 260)."""
     if x.device.type == "cpu":
         return spmv_sum_reference(adj, x, use_weights=use_weights)
     y = _launch("spmv_sum", adj, x, use_weights)

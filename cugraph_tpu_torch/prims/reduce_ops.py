@@ -46,3 +46,6 @@ class ReduceOp:
 PLUS = ReduceOp("plus", "sum")
 MINIMUM = ReduceOp("minimum", "amin")
 MAXIMUM = ReduceOp("maximum", "amax")
+# "any": an arbitrary contributing value (ref reduce_op::any, BFS and SSSP
+# predecessors); the minimum, for determinism, as in the JAX package
+ANY = ReduceOp("any", "amin")

@@ -14,7 +14,9 @@ import torch
 
 import cugraph_tpu as cg
 import cugraph_tpu_torch as ct
+from cugraph_tpu.core import convert as jconvert
 from cugraph_tpu.core import renumber as jrn
+from cugraph_tpu.core.symmetrize import coalesce_edgelist_np
 from cugraph_tpu.generators.rmat import rmat_edgelist as jax_rmat
 from cugraph_tpu.generators.rmat import scramble_vertex_ids as jax_scramble
 
@@ -86,6 +88,69 @@ def test_from_edgelist_equals_jax(name):
     np.testing.assert_allclose(
         tg.in_weight_sums().numpy(), np.asarray(jg.in_weight_sums()), rtol=1e-6
     )
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("name", ["karate", "rmat10", "rmat10w"])
+def test_symmetrize_equals_jax(name, multi):
+    """symmetrize=True (coalesced, reciprocal pairs keep the min weight;
+    or multi, every copy kept): equal CSR, and the CSC is the same
+    adjacency, as in the JAX package."""
+    src, dst, w, v = GRAPHS[name]()
+    jg = cg.from_edgelist(src, dst, w, num_vertices=v, symmetrize=True, multi=multi)
+    tg = ct.from_edgelist(src, dst, w, num_vertices=v, symmetrize=True, multi=multi,
+                          device="cpu")
+    assert tg.is_symmetric and jg.is_symmetric
+    assert tg.num_edges == jg.num_edges and tg.weighted == jg.weighted
+    assert tg.csc() is tg.csr()
+    _assert_adj_equal(tg.csr(), jg.csr())
+    _assert_adj_equal(tg.csc(), jg.csc())
+
+
+@pytest.mark.parametrize("store", ["both", "out"])
+def test_is_symmetric_shares_one_adjacency(store):
+    src, dst, w, v = GRAPHS["rmat10w"]()
+    src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+    w = np.concatenate([w, w])
+    jg = cg.from_edgelist(src, dst, w, num_vertices=v, is_symmetric=True, store=store)
+    tg = ct.from_edgelist(src, dst, w, num_vertices=v, is_symmetric=True, store=store,
+                          device="cpu")
+    assert tg.is_symmetric and tg.csc() is tg.csr()
+    _assert_adj_equal(tg.csc(), jg.csc())
+    plain = ct.from_edgelist(src, dst, w, num_vertices=v, device="cpu")
+    assert not plain.is_symmetric and plain.csc() is not plain.csr()
+
+
+@pytest.mark.parametrize("reduce", ["sum", "min", "max"])
+def test_coalesce_equals_jax(reduce):
+    src, dst, w, v = GRAPHS["rmat10w"]()
+    ws, wd, ww = coalesce_edgelist_np(src, dst, w, reduce=reduce)
+    ts, td, tw = ct.core.coalesce_edgelist(src, dst, w, reduce=reduce, device="cpu")
+    assert len(ws) < len(src)  # R-MAT has parallel edges
+    np.testing.assert_array_equal(ts.numpy(), ws)
+    np.testing.assert_array_equal(td.numpy(), wd)
+    np.testing.assert_allclose(tw.numpy(), ww, rtol=1e-6)
+    us, ud, uw = ct.core.coalesce_edgelist(src, dst, device="cpu")
+    assert uw is None and torch.equal(us, ts) and torch.equal(ud, td)
+
+
+@pytest.mark.parametrize("name", ["karate", "rmat10w"])
+def test_decompress_and_transpose_equal_jax(name):
+    src, dst, w, v = GRAPHS[name]()
+    jg = cg.from_edgelist(src, dst, w, num_vertices=v)
+    tg = ct.from_edgelist(src, dst, w, num_vertices=v, device="cpu")
+    for got, want in zip(ct.core.decompress_to_edgelist(tg), jconvert.decompress_to_edgelist(jg)):
+        if want is None:
+            assert got is None
+        else:
+            np.testing.assert_array_equal(got.numpy(), want)
+    jt, tt = jconvert.transpose(jg), ct.core.transpose(tg)
+    _assert_adj_equal(tt.csr(), jt.csr())
+    _assert_adj_equal(tt.csc(), jt.csc())
+    _assert_adj_equal(tt.csr(), tg.csc())
+    gin = ct.from_edgelist(src, dst, w, num_vertices=v, store="in", device="cpu")
+    for got, want in zip(ct.core.decompress_to_edgelist(gin)[:2], (src, dst)):
+        np.testing.assert_array_equal(np.sort(got.numpy()), np.sort(want))
 
 
 def test_from_edgelist_store_and_checks():

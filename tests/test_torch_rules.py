@@ -14,9 +14,11 @@ import pytest
 import torch
 
 import cugraph_tpu_torch as ct
+from cugraph_tpu_torch.algos import traversal
 from cugraph_tpu_torch.gnn import GCN, GraphSAGE
 from cugraph_tpu_torch.prims.cuda import (
     pull_aggregate,
+    push_aggregate,
     spmm_rows,
     spmv_minplus,
     spmv_sum,
@@ -52,6 +54,8 @@ ENTRY_POINTS = {
     "rmat_edgelist": lambda: ct.rmat_edgelist(4, 16),
     "compute_renumber_map": lambda: ct.compute_renumber_map([0, 1], [1, 0]),
     "apply_renumber_map": lambda: ct.apply_renumber_map([1, 0], [0, 1]),
+    "coalesce_edgelist": lambda: ct.core.coalesce_edgelist([0, 1], [1, 0]),
+    "symmetrize_edgelist": lambda: ct.core.symmetrize_edgelist([0, 1], [1, 0]),
     "GraphSAGE": lambda: GraphSAGE(8),
     "GCN": lambda: GCN(8),
 }
@@ -64,17 +68,30 @@ def test_default_device_without_cuda_raises(name, monkeypatch):
         ENTRY_POINTS[name]()
 
 
-def test_cpu_tensors_launch_no_kernel():
+def test_cpu_tensors_launch_no_kernel(monkeypatch):
     counters = (spmv_sum, spmv_minplus, spmm_rows)
     before = [fn.launches for fn in counters]
     rng = np.random.default_rng(0)
-    g = ct.from_edgelist(rng.integers(0, 50, 300), rng.integers(0, 50, 300),
-                         num_vertices=50, device="cpu")
+    src, dst = rng.integers(0, 50, 300), rng.integers(0, 50, 300)
+    g = ct.from_edgelist(src, dst, num_vertices=50, device="cpu")
+    gw = ct.from_edgelist(src, dst, rng.random(300), num_vertices=50, device="cpu")
     x = torch.from_numpy(rng.random(50).astype(np.float32))
     spmv_sum(g.csc(), x)
     pull_aggregate(g, x)
+    push_aggregate(g, x)
     spmv_minplus(g.csc(), x)
     spmm_rows(g.csc(), x[:, None].repeat(1, 8), precision="bf16")
     ct.pagerank(g, max_iterations=3)
     ct.bfs(g, 0)
+    ct.hits(gw, max_iterations=3)
+    ct.katz_centrality(gw, max_iterations=3)
+    ct.eigenvector_centrality(gw, max_iterations=3)
+    ct.betweenness_centrality(g, k=4)
+    ct.edge_betweenness_centrality(g, k=4)
+    ct.degree_centrality(g)
+    ct.sssp(gw, 0)
+    monkeypatch.setattr(traversal, "SSSP_SWEEP_MIN_EDGES", 0)  # the sweep branch
+    dist, pred = ct.sssp(gw, 0)
+    ct.extract_bfs_paths(gw, dist, pred, [int(torch.isfinite(dist).nonzero()[-1])])
+    traversal.two_hop_neighbors(g)
     assert [fn.launches for fn in counters] == before == [0, 0, 0]

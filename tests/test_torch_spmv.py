@@ -6,6 +6,11 @@ with the numpy oracles of tests/test_spmv3.py (sum: relative 1e-5; min:
 bit-equal, +inf pattern included) and with the JAX package's keyed Pallas
 engine run in interpret mode on TINY3 (sum: 2e-4, its hi/lo bf16 contract;
 min: bit-equal). The graphs are those of tests/test_spmv3.py:47-56.
+
+The v1 windowed pull SpMV (``cugraph_tpu/prims/pallas/spmv.py``, kernel
+``_make_reduce_kernel``), run in interpret mode as tests/test_pallas_spmv.py
+runs it, computes spmv_sum's function over the weighted CSC: they agree
+within 1e-5 of each row's sum of |w * x|.
 """
 
 import numpy as np
@@ -17,6 +22,7 @@ import jax.numpy as jnp
 import cugraph_tpu as cg
 import cugraph_tpu_torch as ct
 from cugraph_tpu import prims as jprims
+from cugraph_tpu.prims.pallas.spmv import build_pull_layout, pull_spmv
 from cugraph_tpu.prims.pallas.spmv3 import TINY3, build_keyed_layout, keyed_spmv_jit
 from cugraph_tpu_torch import prims as tprims
 from cugraph_tpu_torch.prims.cuda import spmv_minplus, spmv_sum
@@ -85,6 +91,38 @@ def test_spmv_sum_plain_matches_keyed_interpret(i):
     lay = build_keyed_layout(dsts, srcs, wts, v, TINY3)
     keyed = np.asarray(keyed_spmv_jit(lay, jnp.asarray(x), interpret=True))
     assert _rel_err(_port(srcs, dsts, wts, x, v, "sum"), keyed) < 2e-4
+
+
+def _pull_graphs():
+    """(srcs, dsts, weights, v): weighted, unweighted, one hub destination
+    that splits into sub-windows, and destinations whose rows are empty."""
+    rng = np.random.default_rng(11)
+    hub_src = rng.integers(0, 300, 3200)
+    hub_dst = np.concatenate([np.zeros(3000, np.int64), rng.integers(0, 300, 200)])
+    return {
+        "weighted": (rng.integers(0, 500, 3000), rng.integers(0, 500, 3000),
+                     rng.normal(size=3000).astype(np.float32), 500),
+        "unweighted": (rng.integers(0, 400, 2500), rng.integers(0, 400, 2500), None, 400),
+        "hub": (hub_src, hub_dst, rng.random(3200).astype(np.float32), 300),
+        "empty_rows": (rng.integers(0, 600, 1500), rng.integers(0, 250, 1500),
+                       rng.random(1500).astype(np.float32), 600),
+    }
+
+
+@pytest.mark.parametrize("name", ["weighted", "unweighted", "hub", "empty_rows"])
+def test_spmv_sum_plain_matches_v1_pull_interpret(name):
+    srcs, dsts, wts, v = _pull_graphs()[name]
+    g = ct.from_edgelist(srcs, dsts, wts, num_vertices=v, device="cpu")
+    adj = g.csc()
+    x = np.random.default_rng(12).normal(size=v).astype(np.float32)
+    w = None if adj.weights is None else adj.weights.numpy()
+    layout = build_pull_layout(adj.majors.numpy(), adj.minors.numpy(), w, v)
+    v1 = np.asarray(pull_spmv(layout, jnp.asarray(x), interpret=True))
+    got = spmv_sum(adj, torch.from_numpy(x)).numpy()
+    size = _oracle_sum(dsts, srcs, None if wts is None else np.abs(wts), np.abs(x), v)
+    assert np.all(np.abs(got - v1) <= 1e-5 * size)
+    if name == "empty_rows":
+        assert np.all(got[250:] == 0.0) and np.all(v1[250:] == 0.0)
 
 
 @pytest.mark.parametrize("i", [0, 1, 4])
