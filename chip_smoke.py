@@ -15,7 +15,14 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    bfs(0) -> 2-layer GraphSAGE forward (F = 128 -> 128 -> 64), each held
    against a reference computed here from the plain versions. The launch
    counters are set to 0 just before and read just after.
-5. Weighted path on the same graph with weights in (0, 1]: spmv_sum and
+5. MG path on the main path's edge list, on a 1 x 1 mesh over NCCL
+   (world size 1): distribute_edgelist -> mg_pagerank(tol=0, 50
+   iterations) -> mg_bfs(0) -> mg_sage_forward (F = 128 -> 128 -> 64),
+   with the launch counters set to 0 just before and read just after;
+   held against the single-device pagerank and bfs and float64 GraphSAGE
+   layers, and the rank's in_block against the single-device CSC. Each
+   kernel checked and timed on the rank's block.
+6. Weighted path on the same graph with weights in (0, 1]: spmv_sum and
    spmv_minplus checked and timed on its CSC, then katz, eigenvector,
    hits, pagerank(tol=0, 20 iterations), sssp(0), betweenness and edge
    betweenness (k=8), degree centrality and extract_bfs_paths, each
@@ -33,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -48,13 +56,18 @@ PEAK_F32_FLOP_PER_S = 67e12
 DEV = torch.device("cuda")
 # tolerances (see check_* below)
 TOL_SUM_REL = 1e-5  # spmv_sum, spmm_rows f32 / bf16 vs float64 plain version
-TOL_PAGERANK_ABS = 1e-6
 TOL_PAGERANK_SUM = 1e-4
 TOL_SAGE_ABS = 1e-4
-# Katz, eigenvector, HITS and weighted PageRank in f32 vs float64 after
-# the same iterations: positive sums of up to ~1e5 terms a row, max abs
-# error over max |ref|
+# PageRank, Katz, eigenvector and HITS in f32 vs float64 after the same
+# iterations: positive sums of up to ~1e5 terms a row, max abs error over
+# max |ref|
 TOL_CENTRALITY_REL = 1e-5
+# each MG GraphSAGE layer (unnormalized rows) in f32 vs float64 layers
+# over the same bf16 rounding of its input: sums of up to ~1e5 terms and
+# 128-term dot products, max abs error over max |ref|. (Held end to end,
+# the float64 hidden layer would round to bf16 apart from the f32 one in
+# a few entries, and one such entry moves an output by ~2^-8 |h| |w| / deg.)
+TOL_MG_SAGE_LAYER_REL = 1e-5
 # betweenness in f32 vs float64 on the same sources: atomic f32 sums of up
 # to ~1e6 positive terms a vertex (n eps worst, sqrt(n) eps typical), max
 # abs error over max |ref|
@@ -94,11 +107,9 @@ def median_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------- graphs
 
 
-def rmat_graph(scale: int, seed: int, weighted: bool = False):
-    """The main path's graph: R-MAT edgefactor 16, scrambled, renumbered
-    by descending degree, CSR + CSC on the card. weighted: weights
-    1 - U[0, 1) in (0, 1], so that Katz's default alpha bounds the
-    spectral radius."""
+def rmat_edges(scale: int, seed: int):
+    """The main path's edge list: R-MAT edgefactor 16, scrambled,
+    renumbered by descending degree, on the card. Returns (src, dst, V)."""
     import cugraph_tpu_torch as ct
 
     v = 1 << scale
@@ -106,6 +117,16 @@ def rmat_graph(scale: int, seed: int, weighted: bool = False):
     src, dst = ct.rmat_edgelist(scale, 16 * v, scramble=True, generator=gen, device=DEV)
     new_to_old = ct.compute_renumber_map(src, dst, v, device=DEV)
     src, dst = ct.apply_renumber_map(new_to_old, src, dst, device=DEV)
+    return src, dst, v
+
+
+def rmat_graph(scale: int, seed: int, weighted: bool = False):
+    """The main path's graph, CSR + CSC on the card. weighted: weights
+    1 - U[0, 1) in (0, 1], so that Katz's default alpha bounds the
+    spectral radius."""
+    import cugraph_tpu_torch as ct
+
+    src, dst, v = rmat_edges(scale, seed)
     w = None
     if weighted:
         wgen = torch.Generator(device=DEV).manual_seed(seed + 3)
@@ -446,9 +467,11 @@ def main_path(scale: int, seed: int) -> dict:
     # PageRank: sums to 1, matches the float64 reference
     require(abs(float(pr.sum()) - 1.0) <= TOL_PAGERANK_SUM, f"pagerank sum {float(pr.sum())}")
     ref = reference_pagerank(g, iters)
-    pr_err = (pr.double() - ref).abs().max().item()
-    require(pr_err <= TOL_PAGERANK_ABS, f"pagerank max abs error {pr_err}")
-    log(f"pagerank: {iters} iterations, max abs error {pr_err:.3e} vs float64 reference")
+    pr_err = rel_err(pr, ref)
+    require(pr_err <= TOL_CENTRALITY_REL, f"pagerank error {pr_err} > {TOL_CENTRALITY_REL}")
+    pr_abs = (pr.double() - ref).abs().max().item()
+    log(f"pagerank: {iters} iterations, error {pr_err:.3e} of max |ref| "
+        f"(max abs {pr_abs:.3e}) vs float64 reference")
 
     # BFS: equal to the reference BFS
     rd, rp = reference_bfs(g, 0)
@@ -466,7 +489,7 @@ def main_path(scale: int, seed: int) -> dict:
     require(sage_err <= TOL_SAGE_ABS, f"graphsage max abs error {sage_err}")
     log(f"graphsage: max abs error {sage_err:.3e} vs the layers applied by hand")
     return dict(seconds=seconds, launches=launches, pagerank_iterations=iters,
-                pagerank_err=pr_err, bfs_levels=levels, bfs_reached=reached,
+                pagerank_rel_err=pr_err, pagerank_max_abs_err=pr_abs, bfs_levels=levels, bfs_reached=reached,
                 graphsage_err=sage_err, warm=warm_breakdown(phases))
 
 
@@ -497,6 +520,191 @@ def warm_breakdown(phases) -> dict:
             top_kernels_ms=[[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
         )
         log(f"warm {name}: {json.dumps(out[name])}")
+    return out
+
+
+# -------------------------------------------------------------- MG path
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def reference_sage_layer(g, x, w_self, w_nbr) -> torch.Tensor:
+    """One mg_sage_forward layer before its activation, by hand in
+    float64: the mean aggregation over spmm_rows_reference in bf16 mode
+    (operands rounded to bf16)."""
+    from cugraph_tpu_torch.prims.cuda import spmm_rows_reference
+
+    x = x.double()
+    deg = g.in_degrees().double().clamp(min=1)[:, None]
+    nbr = spmm_rows_reference(g.csc(), x, precision="bf16", use_weights=False) / deg
+    return x @ w_self.double() + nbr @ w_nbr.double()
+
+
+def block_kernels(mesh, mgg, feats) -> dict:
+    """Each kernel on the rank's block at the MG path's shapes: check
+    against its plain version, time, bound, library yardstick."""
+    from cugraph_tpu_torch.dist import mg_prims
+    from cugraph_tpu_torch.prims.cuda import (
+        spmm_rows,
+        spmm_rows_reference,
+        spmv_minplus,
+        spmv_minplus_reference,
+        spmv_sum,
+        spmv_sum_reference,
+    )
+
+    blk = mgg.in_block
+    rows, cols, e = blk.num_majors, blk.num_minors, blk.num_edges
+    n_src = int((mgg.out_block.degrees() > 0).sum())  # span rows the data needs
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    lib_a = sparse_csr(blk)
+    out = {}
+    x = torch.rand(cols, generator=gen, device=DEV) / cols
+    b_ms, b_by = bound(4 * (rows + 1) + 4 * e + 4 * n_src + 4 * rows, e)
+    out["spmv_sum"] = dict(
+        max_abs_err=check_spmv_sum(blk, x),
+        ms=median_ms(lambda: spmv_sum(blk, x), 20),
+        plain_ms=median_ms(lambda: spmv_sum_reference(blk, x), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
+    )
+    ids = torch.arange(cols, dtype=torch.float32, device=DEV)
+    xb = torch.where(torch.rand(cols, generator=gen, device=DEV) < 0.1, ids, float("inf"))
+    out["spmv_minplus"] = dict(
+        max_abs_err=check_spmv_minplus(blk, xb, use_weights=False),
+        ms=median_ms(lambda: spmv_minplus(blk, xb, use_weights=False), 20),
+        plain_ms=median_ms(lambda: spmv_minplus_reference(blk, xb, use_weights=False), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    x_span = mg_prims.gather_src_values(mesh, feats)
+    f = x_span.shape[1]
+    b_ms, b_by = bound(4 * (rows + 1) + 4 * e + 4 * f * n_src + 4 * f * rows, 2 * e * f)
+    out["spmm_rows"] = dict(
+        max_abs_err=check_spmm_rows(blk, x_span, "bf16"), mode="bf16",
+        ms=median_ms(lambda: spmm_rows(blk, x_span, precision="bf16", use_weights=False), 10),
+        plain_ms=median_ms(lambda: spmm_rows_reference(blk, x_span, precision="bf16"), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: lib_a @ x_span, 10),
+    )
+    for m in out.values():
+        m["block"] = dict(majors=rows, minors=cols, edges=e, span_sources=n_src)
+    log(f"block kernels (majors={rows}, minors={cols}, E={e}): checks ok")
+    return out
+
+
+def mg_path(scale: int, seed: int) -> dict:
+    """The dist/ layer on a 1 x 1 mesh over NCCL, world size 1: ingest,
+    PageRank, BFS and the GraphSAGE forward at full width."""
+    import torch.distributed as dist
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import distribute_edgelist, initialize_distributed, make_mesh
+    from cugraph_tpu_torch.dist import mg_algos, mg_gnn
+    from cugraph_tpu_torch.dist.mg_graph import shard_vertex_values, unshard_vertex_values
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    torch.cuda.reset_peak_memory_stats()
+    seconds = {}
+    t = time.perf_counter()
+    # NCCL on the card (gloo where DEV is the CPU)
+    initialize_distributed(device=DEV, init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0)
+    mesh = make_mesh((1, 1), device=DEV)
+    seconds["setup"] = time.perf_counter() - t
+    # NCCL makes each group's communicator at its first collective
+    t = time.perf_counter()
+    for group in (None, mesh.row_group, mesh.col_group):
+        dist.all_reduce(torch.zeros(1, device=DEV), group=group)
+    sync()
+    seconds["first_collectives"] = time.perf_counter() - t
+    log(f"mg path: backend {dist.get_backend()}, mesh {mesh.shape} on {mesh.device}")
+    src, dst, v = rmat_edges(scale, seed)
+    sync()
+    t = time.perf_counter()
+    mgg = distribute_edgelist(mesh, src, dst, num_vertices=v)
+    sync()
+    seconds["mg_graph"] = time.perf_counter() - t
+    g = ct.from_edgelist(src, dst, num_vertices=v, device=DEV)  # the single-device reference
+    del src, dst
+    params = mg_gnn.init_sage_params(torch.Generator(device=DEV).manual_seed(seed + 5),
+                                     128, 128, 64, device=DEV)
+    feats_global = torch.randn(v, 128, device=DEV,
+                               generator=torch.Generator(device=DEV).manual_seed(seed + 2))
+    feats = shard_vertex_values(mesh, mgg, feats_global)
+    phases = {
+        "mg_pagerank": lambda: mg_algos.mg_pagerank(mesh, mgg, tol=0.0, max_iterations=50),
+        "mg_bfs": lambda: mg_algos.mg_bfs(mesh, mgg, 0),
+        "mg_graphsage": lambda: mg_gnn.mg_sage_forward(mesh, mgg, params, feats),
+    }
+    for k in counters.values():
+        k.launches = 0
+    results = {}
+    for name, fn in phases.items():
+        t = time.perf_counter()
+        results[name] = fn()
+        sync()
+        seconds[name] = time.perf_counter() - t
+    launches = {name: k.launches for name, k in counters.items()}
+    log(f"mg path seconds: {json.dumps(seconds)}")
+    log(f"mg path launches: {json.dumps(launches)}")
+    pr_l, iters = results["mg_pagerank"]
+    # 50 at scale 21; a small graph may reach an exact fixpoint sooner
+    require(launches["spmv_sum"] == iters, "mg_pagerank must launch spmv_sum once an iteration")
+    require(launches["spmv_minplus"] > 0, "spmv_minplus was not launched by mg_bfs")
+    require(launches["spmm_rows"] == 2, "mg_sage_forward must launch spmm_rows once a layer")
+    out = dict(seconds=seconds, launches=launches)
+
+    # the rank's in_block is the single-device CSC on one rank
+    csc = g.csc()
+    for key in ("offsets", "minors", "majors"):
+        require(torch.equal(getattr(mgg.in_block, key), getattr(csc, key)),
+                f"in_block.{key} differs from the single-device CSC")
+
+    # PageRank against the single-device pagerank, relative to max |ref|
+    pr = unshard_vertex_values(mgg, pr_l)
+    ref, ref_iters = ct.pagerank(g, tol=0.0, max_iterations=50)
+    require(iters == ref_iters, f"mg_pagerank ran {iters} iterations, pagerank {ref_iters}")
+    pr_err = rel_err(pr, ref.double())
+    require(pr_err <= TOL_CENTRALITY_REL, f"mg_pagerank error {pr_err} > {TOL_CENTRALITY_REL}")
+    out["pagerank"] = dict(iterations=iters, rel_err=pr_err)
+
+    # BFS: distances and predecessors equal to the single-device bfs
+    dist_l, pred_l = results["mg_bfs"]
+    rd, rp = ct.bfs(g, 0)
+    require(torch.equal(unshard_vertex_values(mgg, dist_l), rd), "mg_bfs distances differ")
+    require(torch.equal(unshard_vertex_values(mgg, pred_l), rp), "mg_bfs predecessors differ")
+    out["bfs"] = dict(reached=int((rd < 2**31 - 1).sum()))
+
+    # GraphSAGE: finite, (V, 64); the forward is its two layers, and each
+    # layer matches float64 on the layer's own input
+    emb = unshard_vertex_values(mgg, results["mg_graphsage"])
+    require(emb.shape == (v, 64), f"mg graphsage output shape {tuple(emb.shape)}")
+    require(bool(torch.isfinite(emb).all()), "mg graphsage output not finite")
+    p = params
+    h = torch.relu(feats @ p["w_self1"]
+                   + mg_algos.mg_spmm_aggregate(mesh, mgg, feats, op="mean") @ p["w_nbr1"])
+    out2 = h @ p["w_self2"] + mg_algos.mg_spmm_aggregate(mesh, mgg, h, op="mean") @ p["w_nbr2"]
+    h = unshard_vertex_values(mgg, h)
+    comp_err = rel_err(emb, unshard_vertex_values(mgg, out2).double())
+    require(comp_err <= 1e-6, f"mg_sage_forward differs from its layers: {comp_err}")
+    l1_err = rel_err(h, torch.relu(reference_sage_layer(g, feats_global, p["w_self1"], p["w_nbr1"])))
+    l2_err = rel_err(emb, reference_sage_layer(g, h, p["w_self2"], p["w_nbr2"]))
+    for name, err in (("layer 1", l1_err), ("layer 2", l2_err)):
+        require(err <= TOL_MG_SAGE_LAYER_REL,
+                f"mg graphsage {name} error {err} > {TOL_MG_SAGE_LAYER_REL}")
+    out["graphsage"] = dict(layer1_rel_err=l1_err, layer2_rel_err=l2_err,
+                            forward_vs_layers_rel_err=comp_err)
+    del h, out2, g
+    log(f"mg path checks: {json.dumps({k: out[k] for k in ('pagerank', 'bfs', 'graphsage')})}")
+
+    out["block"] = block_kernels(mesh, mgg, feats)
+    out["warm"] = warm_breakdown(phases)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"mg path peak memory: {out['max_memory_allocated']} B")
+    dist.destroy_process_group()
     return out
 
 
@@ -722,13 +930,18 @@ ALSO_REPLACES = {
         "cugraph_tpu/prims/pallas/spmv2.py:1507",
         "cugraph_tpu/prims/pallas/spmv2.py:1582",
         "cugraph_tpu/prims/pallas/spmv.py:194",
+        "cugraph_tpu/prims/pallas/spmv2.py:1675",
     ],
     "spmv_minplus": [
         "cugraph_tpu/prims/pallas/spmv3.py:944",
         "cugraph_tpu/prims/pallas/spmv2.py:1507",
         "cugraph_tpu/prims/pallas/spmv2.py:1582",
     ],
-    "spmm_rows": [],
+    "spmm_rows": [
+        "cugraph_tpu/prims/pallas/spmv2.py:1934",
+        "cugraph_tpu/prims/pallas/spmv2.py:1989",
+        "cugraph_tpu/prims/pallas/spmv2.py:2017",
+    ],
 }
 
 
@@ -775,7 +988,11 @@ def main() -> int:
     path = main_path(args.scale, args.seed)
     torch.cuda.empty_cache()
 
-    # 5. weighted path
+    # 5. MG path
+    mgp = mg_path(args.scale, args.seed)
+    torch.cuda.empty_cache()
+
+    # 6. weighted path
     g = rmat_graph(args.scale, args.seed, weighted=True)
     weighted = weighted_full_shape_kernels(g, args.seed)
     wpath = weighted_path(g, args.seed)
@@ -785,8 +1002,10 @@ def main() -> int:
     for name, m in kernels.items():
         source, replaces = SOURCES[name]
         by_path = dict(main_path=path["launches"][name],
+                       mg_path=mgp["launches"][name],
                        weighted_path=sum(n[name] for n in wpath["launches"].values()))
         extra = {"weighted": weighted[name]} if name in weighted else {}
+        extra["mg_block"] = mgp["block"][name]
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             also_replaces=ALSO_REPLACES[name], launches=path["launches"][name],
@@ -794,7 +1013,7 @@ def main() -> int:
         ))
     log(f"total: {time.perf_counter() - t_start:.1f} s after device setup")
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
-                      "weighted_path": wpath, "card": smi}))
+                      "mg_path": mgp, "weighted_path": wpath, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,9 @@ to find. The layers, from the entry points down:
   dense SpMM;
   ``prims.cuda`` holds the hand-written CUDA kernels (``csrc/``):
   ``spmv_sum``, ``spmv_minplus`` and ``spmm_rows``.
+- ``dist``       the multi-GPU layer on ``torch.distributed`` (imported on
+  its own): the 2D edge partition, one process per card, MG PageRank,
+  BFS, GNN aggregation and the GraphSAGE forward.
 
 Every entry point takes ``device=None``, which means the CUDA card, and
 raises ``RuntimeError`` when there is none; pass ``device="cpu"`` to run

@@ -1,9 +1,12 @@
 """Rules of the cugraph_tpu_torch package.
 
-- It and chip_smoke.py import nothing of jax, flax or cugraph_tpu.
+- It, chip_smoke.py and the rank bodies of the multi-process tests
+  (tests/_torch_dist_worker.py) import nothing of jax, flax or
+  cugraph_tpu.
 - device=None means CUDA: without CUDA every entry point raises
   RuntimeError instead of running on the CPU.
-- CPU tensors take the kernels' plain versions: no launch is counted.
+- CPU tensors take the kernels' plain versions: no launch is counted,
+  in one process or in the ranks of a gloo group.
 """
 
 import ast
@@ -13,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist_worker as worker
 import cugraph_tpu_torch as ct
+from cugraph_tpu_torch import dist as ctd
 from cugraph_tpu_torch.algos import traversal
 from cugraph_tpu_torch.gnn import GCN, GraphSAGE
 from cugraph_tpu_torch.prims.cuda import (
@@ -38,8 +43,10 @@ def _imported_roots(path):
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    files = sorted((ROOT / "cugraph_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "cugraph_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
     assert len(files) > 15
+    assert ROOT / "cugraph_tpu_torch" / "dist" / "mg_algos.py" in files
     bad = [
         (str(f.relative_to(ROOT)), mod)
         for f in files
@@ -58,6 +65,12 @@ ENTRY_POINTS = {
     "symmetrize_edgelist": lambda: ct.core.symmetrize_edgelist([0, 1], [1, 0]),
     "GraphSAGE": lambda: GraphSAGE(8),
     "GCN": lambda: GCN(8),
+    "initialize_distributed": lambda: ctd.initialize_distributed(),
+    "make_mesh": lambda: ctd.make_mesh(),
+    "make_global_mesh": lambda: ctd.make_global_mesh(),
+    "init_sage_params": lambda: ctd.mg_gnn.init_sage_params(torch.Generator(), 4, 4, 2),
+    "sage_params_from_jax": lambda: ctd.mg_gnn.sage_params_from_jax(
+        {k: np.zeros((2, 2)) for k in ctd.mg_gnn.SAGE_PARAMS}),
 }
 
 
@@ -95,3 +108,10 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
     ct.extract_bfs_paths(gw, dist, pred, [int(torch.isfinite(dist).nonzero()[-1])])
     traversal.two_hop_neighbors(g)
     assert [fn.launches for fn in counters] == before == [0, 0, 0]
+
+
+def test_cpu_ranks_launch_no_kernel():
+    """The MG entry points in two gloo ranks on the CPU, mesh (2, 1)."""
+    for r in worker.spawn(worker.run_launch_counts, 2):
+        assert r["shape"] == (2, 1)
+        assert r["before"] == r["after"] == [0, 0, 0]
