@@ -30,6 +30,25 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    and each held against a float64 (or, for SSSP, bit-exact f32)
    reference computed here from the plain versions.
 
+7. Scan and assembly entry points (TPU kernels #12 and #7) at the s21
+   shapes, launch counters set to 0 just before and read just after:
+   cumsum_flat on the weighted CSC weights and on a seeded U[-1, 1) array
+   of the same E, segment_sums_from_cumsum over the CSC offsets, and
+   assemble_chunks on E / 128 rows of 128 f32 in chunks of 16 rows, with
+   ~8% of the chunks copied twice. Each held against its plain version and
+   float64, timed, bounded, beside torch.cumsum / index_select +
+   index_copy_.
+8. Community path on the s21 edge list symmetrized (SCC on the directed
+   one): weakly_connected_components, strongly_connected_components,
+   core_number, k_core at the largest core, louvain, modularity, the
+   three analyze_clustering_* functions, leiden and ego_graph(0, 1);
+   triangle_count, ktruss and ecg at RMAT scale 18 (SMALL_SCALE); the
+   two spectral clusterings at scale 10. Each phase with its launch
+   counters set to 0 just before and read just after, and an independent
+   reference: scipy's weak and strong components, the core numbers by
+   h-index iteration from the degrees, float64 modularity above the
+   singletons', a min-degree probe count of triangles and k-truss support.
+
 The line before the last is one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}. Without CUDA the script exits
 non-zero and prints no result.
@@ -72,6 +91,30 @@ TOL_MG_SAGE_LAYER_REL = 1e-5
 # to ~1e6 positive terms a vertex (n eps worst, sqrt(n) eps typical), max
 # abs error over max |ref|
 TOL_BETWEENNESS_REL = 1e-4
+# cumsum_flat: each entry within this share of the float64 prefix of |x|
+# there (f32 tree sums within 4096-element tiles and across tile offsets)
+TOL_SCAN_REL = 1e-5
+# segment sums as differences of two f32 prefixes: error against float64
+# within this many 2^-24 of the sum of the segment's two float64 prefixes
+# of |w|. Each prefix carries its own rounding: on the s21 weights the
+# scan's entries reach 2.6e-7 (4.4 x 2^-24) of their prefix on an H100, so
+# a difference of two reaches 4.4 of their sum; twice that here.
+TOL_SEGMENT_EPS = 8.8
+# Louvain, Leiden and the clustering metrics in f32 against float64, absolute
+TOL_MODULARITY = 1e-6
+# Louvain and Leiden must beat the singletons' modularity by this much
+# (they reach 0.0389 and 0.0431 at s21 on an H100; the singletons sit
+# near 0)
+MODULARITY_GAIN = 0.01
+# assemble_chunks at the sorted engine's s21 shape: chunks of 16 rows,
+# parts of 2048 rows, each part filled with 120 of its 128 chunk slots
+ASSEMBLE_CHUNK_ROWS = 16
+ASSEMBLE_PART_ROWS = 2048
+ASSEMBLE_PART_FILL = 120
+KTRUSS_K = 16
+# RMAT scale of triangle count, k-truss and ECG (at s21 their wedge probes
+# and ECG's 17 Louvain runs would dominate the run)
+SMALL_SCALE = 18
 
 
 def log(msg: str) -> None:
@@ -918,12 +961,467 @@ def weighted_path(g, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------- scan and assembly
+
+
+def check_cumsum(x, y, plain, name: str) -> dict:
+    """Each entry of y within TOL_SCAN_REL of the float64 prefix of |x|,
+    both from the float64 prefix of x and from the plain version's y."""
+    size = torch.cumsum(x.double().abs(), 0).clamp(min=1e-300)
+    err = (y.double() - torch.cumsum(x.double(), 0)).abs()
+    out = dict(max_abs_err=err.max().item(), rel=(err / size).max().item(),
+               vs_plain_rel=((y.double() - plain.double()).abs() / size).max().item())
+    for key in ("rel", "vs_plain_rel"):
+        require(out[key] <= TOL_SCAN_REL,
+                f"{name}: {key} error {out[key]} of the prefix of |x| > {TOL_SCAN_REL}")
+    return out
+
+
+def seeded_chunk_layout(n_chunks: int, seed: int):
+    """chunk_src / chunk_dst shaped like the sorted engine's at s21: every
+    binned chunk once in a seeded order, and after some 8% of them a
+    second copy (a run's boundary chunk lands in two parts: real / copied
+    cells 92.1%, spmv2.py:86-90); parts of 2048 rows (128 chunks of 16),
+    each filled with ASSEMBLE_PART_FILL consecutive chunks."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    order = torch.randperm(n_chunks, generator=gen, device=DEV)
+    n_rep = round(n_chunks * (1 / 0.921 - 1))
+    twice = torch.zeros(n_chunks, dtype=torch.bool, device=DEV)
+    twice[torch.randperm(n_chunks, generator=gen, device=DEV)[:n_rep]] = True
+    chunk_src = order.repeat_interleave(1 + twice.long()).to(torch.int32)
+    step = torch.arange(chunk_src.numel(), device=DEV)
+    per_part = ASSEMBLE_PART_ROWS // ASSEMBLE_CHUNK_ROWS
+    part, slot = step // ASSEMBLE_PART_FILL, step % ASSEMBLE_PART_FILL
+    chunk_dst = (part * per_part + slot).to(torch.int32)
+    out_rows = (int(part[-1]) + 1) * ASSEMBLE_PART_ROWS
+    return chunk_src, chunk_dst, out_rows
+
+
+def scan_assemble_path(g, seed: int) -> dict:
+    """The entry points of kernels #12 and #7 at the s21 shapes: launch
+    counters set to 0 just before and read just after; then each kernel
+    against its plain version and float64, timed, bounded, and beside its
+    library yardstick."""
+    from cugraph_tpu_torch.prims.cuda import (
+        assemble_chunks,
+        assemble_chunks_reference,
+        cumsum_flat,
+        cumsum_flat_reference,
+        segment_sums_from_cumsum,
+    )
+
+    adj = g.csc()
+    e = adj.num_edges
+    gen = torch.Generator(device=DEV).manual_seed(seed + 6)
+    inputs = {"weights": adj.weights, "uniform": torch.rand(e, generator=gen, device=DEV) * 2 - 1}
+    ch = ASSEMBLE_CHUNK_ROWS
+    rows = -(-e // 128 // ch) * ch  # E / 128 rows, rounded up to whole chunks
+    binned = torch.randn(rows, 128, generator=gen, device=DEV)
+    chunk_src, chunk_dst, out_rows = seeded_chunk_layout(rows // ch, seed + 7)
+
+    counters = {"cumsum_flat": cumsum_flat, "assemble_chunks": assemble_chunks}
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    scans = {name: cumsum_flat(x) for name, x in inputs.items()}
+    seg = segment_sums_from_cumsum(scans["weights"], adj.offsets, adj.num_majors)
+    assembled = assemble_chunks(binned, chunk_src, chunk_dst, ch, out_rows)
+    sync()
+    seconds = time.perf_counter() - t
+    launches = {n: c.launches for n, c in counters.items()}
+    log(f"scan/assemble path launches: {json.dumps(launches)}")
+    require(launches == {"cumsum_flat": 2, "assemble_chunks": 1},
+            "the scan/assemble entry points must launch their kernels")
+    # a chunk id outside its array raises on the card, as on the CPU
+    for bad_src, bad_dst in ((rows // ch, 0), (0, out_rows // ch)):
+        try:
+            assemble_chunks(binned, chunk_src.new_tensor([bad_src]), chunk_dst.new_tensor([bad_dst]),
+                            ch, out_rows)
+        except ValueError:
+            continue
+        raise RuntimeError("check failed: assemble_chunks took a chunk id outside its array")
+
+    out = {}
+    errs = {name: check_cumsum(x, scans[name], cumsum_flat_reference(x), f"cumsum_flat({name})")
+            for name, x in inputs.items()}
+    # segment sums: the boundaries exact over a float64 prefix; the kernel's
+    # f32 differences each within the rounding of its own two prefixes
+    ref = torch.zeros(adj.num_majors, dtype=torch.float64, device=DEV)
+    ref.index_add_(0, adj.majors, adj.weights.double())  # in_weight_sums in float64
+    prefix = torch.cat([ref.new_zeros(1), torch.cumsum(adj.weights.double(), 0)])
+    seg64 = segment_sums_from_cumsum(prefix[1:], adj.offsets, adj.num_majors)
+    lo, hi = prefix[adj.offsets[:-1].long()], prefix[adj.offsets[1:].long()]
+    require(bool(((seg64 - ref).abs() <= 1e-12 * hi).all()),
+            "segment sums over a float64 prefix differ from float64 in_weight_sums")
+    seg_diff = (seg.double() - ref).abs()
+    seg_err = seg_diff.max().item()
+    seg_ulps = (seg_diff / (2.0**-24 * (lo + hi)).clamp(min=2.0**-149)).max().item()
+    require(seg_ulps <= TOL_SEGMENT_EPS,
+            f"segment sums error {seg_ulps} x 2^-24 of the segment's two prefixes > {TOL_SEGMENT_EPS}")
+    top = float(prefix[-1])
+    x = inputs["uniform"]
+    b_ms, b_by = bound(8 * e, e)
+    out["cumsum_flat"] = dict(
+        max_abs_err=errs["uniform"]["max_abs_err"],
+        tol=f"{TOL_SCAN_REL} of the float64 prefix of |x| at each entry, vs float64 and vs plain",
+        errors=dict(errs, segment_sums_max_abs_err=seg_err, largest_prefix=top,
+                    segment_sums_eps_of_prefixes=seg_ulps,
+                    segment_tol=f"{TOL_SEGMENT_EPS} x 2^-24 of each segment's two prefixes"),
+        n=e, ms=median_ms(lambda: cumsum_flat(x), 20),
+        plain_ms=median_ms(lambda: cumsum_flat_reference(x), 20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(lambda: torch.cumsum(x, 0), 20),
+    )
+
+    plain = assemble_chunks_reference(binned, chunk_src, chunk_dst, ch, out_rows)
+    sync()
+    require(torch.equal(assembled, plain), "assemble_chunks is not bit-equal to its plain version")
+    covered = torch.zeros(out_rows // ch, dtype=torch.bool, device=DEV)
+    covered[chunk_dst.long()] = True
+    require(not bool(assembled.view(out_rows // ch, -1)[~covered].any()),
+            "rows no chunk writes must be zero")
+    width = ch * 128
+    lib_out = torch.zeros(out_rows // ch, width, device=DEV)
+    cs64, cd64 = chunk_src.long(), chunk_dst.long()
+    n_steps, distinct = chunk_src.numel(), int(torch.unique(chunk_src).numel())
+    # each distinct input chunk read once, each output row written once,
+    # the two chunk id arrays read once
+    b_ms, b_by = bound(distinct * width * 4 + out_rows * 128 * 4 + 8 * n_steps, 0)
+    out["assemble_chunks"] = dict(
+        max_abs_err=0.0, tol="bit-equal to the plain version; uncovered rows zero",
+        shape=dict(binned_rows=rows, chunk_rows=ch, steps=n_steps, distinct_chunks=distinct,
+                   out_rows=out_rows, part_fill=ASSEMBLE_PART_FILL),
+        ms=median_ms(lambda: assemble_chunks(binned, chunk_src, chunk_dst, ch, out_rows), 20),
+        plain_ms=median_ms(
+            lambda: assemble_chunks_reference(binned, chunk_src, chunk_dst, ch, out_rows), 20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=median_ms(
+            lambda: lib_out.index_copy_(0, cd64, binned.view(-1, width).index_select(0, cs64)), 20),
+    )
+    timing = ("ms", "plain_ms", "bound_ms", "library_ms")
+    log(f"scan/assemble path (E={e}, {n_steps} chunk steps): checks ok, "
+        f"{json.dumps({k: {t: m[t] for t in timing} for k, m in out.items()})}")
+    return dict(seconds=seconds, launches=launches, kernels=out)
+
+
+# ------------------------------------------------------- community path
+
+
+def degree_probe_triangles(g, budget: int = 1 << 24):
+    """Per-vertex triangles and per-edge common-neighbour counts of a
+    symmetric graph by another method than the port's: for every stored
+    edge (v, u), u != v, the neighbours of its smaller-degree end are
+    looked up in the other end's sorted list (no orientation, no DAG;
+    self-loops are no neighbours). t(v) = (sum over v's edges of the
+    counts) / 2."""
+    adj = g.csr()
+    v = g.num_vertices
+    offsets = adj.offsets.long()
+    s, d = adj.majors.long(), adj.minors.long()
+    keys = s * v + d  # sorted, like the CSR
+    deg = offsets[1:] - offsets[:-1]
+    swap = deg[d] < deg[s]
+    a, b = torch.where(swap, d, s), torch.where(swap, s, d)  # probe a's list in b's
+    count = torch.where(s != d, deg[a], 0)
+    cum = torch.cumsum(count, 0)
+    common = torch.zeros(adj.num_edges, dtype=torch.int64, device=DEV)
+    e0 = 0
+    while e0 < adj.num_edges:
+        base = int(cum[e0 - 1]) if e0 else 0
+        e1 = int(torch.searchsorted(cum, base + budget, right=True))
+        e1 = max(e1, e0 + 1)
+        n = int(cum[e1 - 1]) - base
+        edge = torch.repeat_interleave(torch.arange(e0, e1, device=DEV), count[e0:e1],
+                                       output_size=n)
+        j = torch.arange(n, device=DEV) - (cum[edge] - count[edge] - base)
+        x = d[offsets[a[edge]] + j]
+        probe = b[edge] * v + x
+        pos = torch.searchsorted(keys, probe).clamp(max=adj.num_edges - 1)
+        # a self-loop on either end is no common neighbour
+        hit = (keys[pos] == probe) & (x != a[edge]) & (x != b[edge])
+        common.index_add_(0, edge, hit.long())
+        e0 = e1
+    tri = torch.zeros(v, dtype=torch.int64, device=DEV).index_add_(0, s, common)
+    return tri // 2, common
+
+
+def hindex_cores(g, max_rounds: int = 1000):
+    """Core numbers of core_number(g, "incoming_outgoing") by another method
+    than the port's peeling: the h-index operator iterated from the degrees
+    (Lü et al., Nat. Commun. 2016). Degree counts as core_number does: the
+    incidences of v are its out-edges over the CSR plus its in-edges over
+    the CSC. Each round sets c(v) to the largest h such that at least h of
+    v's incidences lead to a u with c(u) >= h, by one sort of packed
+    (v, -c(u)) keys; from the degrees the sequence falls to the core
+    numbers, the greatest fixed point, and stops there. Returns (cores,
+    rounds)."""
+    lists = [(adj.majors.long(), adj.minors.long()) for adj in (g.csr(), g.csc())]
+    me, order = torch.sort(torch.cat([m for m, _ in lists]), stable=True)
+    nb = torch.cat([n for _, n in lists])[order]
+    del lists, order
+    deg = torch.bincount(me, minlength=g.num_vertices)
+    end = torch.cumsum(deg, 0)
+    start = end - deg
+    rank = torch.arange(me.numel(), device=DEV) - start[me] + 1  # 1-based within v's incidences
+    top = (1 << 31) - 1
+    c = deg
+    for rounds in range(1, max_rounds + 1):
+        ranked = top - (torch.sort((me << 32) | (top - c[nb])).values & top)  # c(u) descending per v
+        hits = torch.cat([deg.new_zeros(1), torch.cumsum((ranked >= rank).long(), 0)])
+        h = hits[end] - hits[start]
+        if torch.equal(h, c):
+            return c, rounds
+        c = h
+    raise RuntimeError(f"check failed: h-index cores did not settle in {max_rounds} rounds")
+
+
+def check_cores(g, core) -> dict:
+    """core_number(g, "incoming_outgoing") against both core invariants,
+    counting degree as it does (each v has at least core(v) incidences to
+    vertices whose core is at least its own, and fewer than core(v) + 1 to
+    those whose core is above it: necessary, not sufficient, as all zeros
+    pass), and equal to hindex_cores(g)."""
+    ge = torch.zeros(g.num_vertices, dtype=torch.int64, device=DEV)
+    gt = torch.zeros_like(ge)
+    for adj in (g.csr(), g.csc()):
+        me, nb = adj.majors.long(), adj.minors.long()
+        ge.index_add_(0, me, (core[nb] >= core[me]).long())
+        gt.index_add_(0, me, (core[nb] > core[me]).long())
+    c = core.long()
+    require(bool((ge >= c).all()), "a vertex has fewer than core(v) neighbours of core >= core(v)")
+    require(bool((gt < c + 1).all()), "a vertex has core(v) + 1 neighbours of core > core(v)")
+    del ge, gt
+    ref, rounds = hindex_cores(g)
+    require(torch.equal(core.long(), ref), "core numbers differ from the h-index cores")
+    return dict(max_core=int(core.max()), hindex_rounds=rounds)
+
+
+def modularity64(g, labels) -> float:
+    """Modularity in float64 from the edge list (resolution 1)."""
+    csr = g.csr()
+    lab = labels.long()
+    w = torch.ones(csr.num_edges, dtype=torch.float64, device=DEV) if csr.weights is None \
+        else csr.weights.double()
+    k = torch.zeros(g.num_vertices, dtype=torch.float64, device=DEV).index_add_(0, csr.majors, w)
+    m2 = k.sum()
+    intra = (w * (lab[csr.majors.long()] == lab[csr.minors.long()])).sum()
+    sigma = torch.zeros_like(k).index_add_(0, lab, k)
+    return float(intra / m2 - ((sigma / m2) ** 2).sum())
+
+
+def community_path(scale: int, small_scale: int, seed: int) -> dict:
+    """WCC, SCC, core number, k-core, Louvain, modularity, the clustering
+    metrics, Leiden and the ego graph on the symmetrized RMAT graph at
+    ``scale`` (SCC on the directed one); triangle count, k-truss and ECG at
+    ``small_scale``; the spectral clusterings at scale 10. Each phase with
+    its launch counters set to 0 just before and read just after, and an
+    independent reference."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.prims.cuda import (
+        assemble_chunks,
+        cumsum_flat,
+        spmm_rows,
+        spmv_minplus,
+        spmv_sum,
+    )
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows,
+                "cumsum_flat": cumsum_flat, "assemble_chunks": assemble_chunks}
+    torch.cuda.reset_peak_memory_stats()
+    seconds, launches, results = {}, {}, {}
+
+    t = time.perf_counter()
+    src, dst, v = rmat_edges(scale, seed)
+    g_dir = ct.from_edgelist(src, dst, num_vertices=v, device=DEV)
+    g = ct.from_edgelist(src, dst, num_vertices=v, symmetrize=True, device=DEV)
+    del src, dst
+    sync()
+    seconds["graph"] = time.perf_counter() - t
+    small = {}
+    for s_ in (small_scale, 10):
+        s_src, s_dst, s_v = rmat_edges(s_, seed)
+        small[s_] = ct.from_edgelist(s_src, s_dst, num_vertices=s_v, symmetrize=True, device=DEV)
+    log(f"community graphs: s{scale} V={v} E directed {g_dir.num_edges}, symmetrized "
+        f"{g.num_edges}; s{small_scale} E {small[small_scale].num_edges}; s10 E {small[10].num_edges}")
+
+    def run(name, fn):
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        results[name] = fn()
+        sync()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = {n: c.launches for n, c in counters.items()}
+
+    gs = small[small_scale]
+
+    # later phases read earlier results when they run
+    def core_k():
+        return int(results["core_number"].max())
+
+    def louvain_labels():
+        return results["louvain"][0]
+
+    phases = {
+        "wcc": lambda: ct.weakly_connected_components(g),
+        "scc": lambda: ct.strongly_connected_components(g_dir),
+        "core_number": lambda: ct.core_number(g, "incoming_outgoing"),
+        "k_core": lambda: ct.k_core(g, core_k(), results["core_number"]),
+        "louvain": lambda: ct.louvain(g),
+        "modularity": lambda: ct.modularity(g, louvain_labels()),
+        "analyze": lambda: (ct.analyze_clustering_modularity(g, louvain_labels()),
+                            ct.analyze_clustering_edge_cut(g, louvain_labels()),
+                            ct.analyze_clustering_ratio_cut(g, louvain_labels())),
+        "leiden": lambda: ct.leiden(g),
+        "ego_graph": lambda: ct.ego_graph(g, 0, 1),
+        "triangle_count": lambda: ct.triangle_count(gs),
+        "ktruss": lambda: ct.ktruss(gs, KTRUSS_K),
+        "ecg": lambda: ct.ecg(gs, seed=seed),
+        "spectral_balanced_cut": lambda: ct.spectral_balanced_cut_clustering(small[10], 4),
+        "spectral_modularity": lambda: ct.spectral_modularity_maximization_clustering(small[10], 4),
+    }
+    for name, fn in phases.items():
+        run(name, fn)
+        if name == "core_number":
+            core_rounds = ct.core_number.rounds
+    log(f"community path seconds: {json.dumps(seconds)}")
+    log(f"community path launches: {json.dumps(launches)}")
+    require(launches["ego_graph"]["spmv_minplus"] > 0, "ego_graph's bfs must launch spmv_minplus")
+    out = dict(seconds=seconds, launches=launches, num_edges_symmetrized=g.num_edges,
+               num_edges_directed=g_dir.num_edges, small_scale=small_scale,
+               small_num_edges=gs.num_edges)
+
+    # WCC: equal to scipy's components, each labelled by its smallest id
+    csr = g.csr()
+    m = sp.csr_matrix((np.ones(csr.num_edges, np.int8),
+                       csr.minors.cpu().numpy(), csr.offsets.cpu().numpy()), shape=(v, v))
+    n_comp, raw = connected_components(m, directed=False)
+    first = np.full(n_comp, v, np.int64)
+    np.minimum.at(first, raw, np.arange(v))
+    wcc = results["wcc"]
+    require(np.array_equal(wcc.cpu().numpy(), first[raw]), "wcc differs from scipy's components")
+    out["wcc"] = dict(components=int(n_comp))
+
+    # SCC: equal to scipy's strong components of the directed graph, each
+    # labelled by its smallest id, and a refinement of the WCC labels
+    dcsr = g_dir.csr()
+    m = sp.csr_matrix((np.ones(dcsr.num_edges, np.int8),
+                       dcsr.minors.cpu().numpy(), dcsr.offsets.cpu().numpy()), shape=(v, v))
+    n_scc, raw = connected_components(m, directed=True, connection="strong")
+    first = np.full(n_scc, v, np.int64)
+    np.minimum.at(first, raw, np.arange(v))
+    scc = results["scc"].long()
+    require(np.array_equal(scc.cpu().numpy(), first[raw]), "scc differs from scipy's strong components")
+    require(int(torch.unique(scc).numel()) == n_scc, "scc component count differs from scipy's")
+    require(torch.equal(wcc[scc], wcc), "scc labels do not refine the wcc labels")
+    out["scc"] = dict(components=int(n_scc))
+
+    # core number: both invariants; k-core: the vertices of largest core
+    core, kmax = results["core_number"], core_k()
+    out["core_number"] = check_cores(g, core)
+    out["core_number"]["rounds"] = core_rounds
+    sub, vmap = results["k_core"]
+    require(torch.equal(vmap.long(), torch.nonzero(core >= kmax).squeeze(1)), "k_core vertices")
+    require(bool((sub.out_degrees() + sub.in_degrees() >= kmax).all()),
+            "a k_core vertex has in + out degree below k inside the k-core")
+    out["k_core"] = dict(k=kmax, vertices=sub.num_vertices, edges=sub.num_edges)
+
+    # Louvain and Leiden: the returned modularity against float64, and a
+    # clustering that beats the singletons by a margin, in more than one
+    # community
+    q_single = modularity64(g, torch.arange(v, device=DEV))
+    for name in ("louvain", "leiden"):
+        lab_, q_ = results[name]
+        n_comm = int(torch.unique(lab_).numel())
+        require(q_ > q_single + MODULARITY_GAIN and 1 < n_comm < v,
+                f"{name}: modularity {q_} over {n_comm} communities, singletons {q_single}")
+    labels, q = results["louvain"]
+    q64 = modularity64(g, labels)
+    lq_err = abs(q - q64)
+    require(lq_err <= TOL_MODULARITY, f"louvain modularity {q} vs float64 {q64}")
+    require(abs(results["modularity"] - q64) <= TOL_MODULARITY, "modularity vs float64")
+    a_mod, a_cut, a_ratio = results["analyze"]
+    require(abs(a_mod - q64) <= TOL_MODULARITY, "analyze_clustering_modularity vs float64")
+    lab = labels.long()
+    cross = lab[csr.majors.long()] != lab[csr.minors.long()]
+    cut64 = float(cross.sum()) / 2
+    require(abs(a_cut - cut64) <= TOL_SUM_REL * cut64, f"edge cut {a_cut} vs {cut64}")
+    sizes = torch.bincount(lab).double()
+    cut_per = torch.bincount(lab[csr.majors.long()][cross], minlength=sizes.numel()).double()
+    ratio64 = float((cut_per / sizes.clamp(min=1)).sum())
+    require(abs(a_ratio - ratio64) <= 1e-9 * ratio64, f"ratio cut {a_ratio} vs {ratio64}")
+    out["louvain"] = dict(modularity=q, modularity64=q64, abs_err=lq_err, singletons64=q_single,
+                          communities=int(torch.unique(lab).numel()),
+                          edge_cut=a_cut, ratio_cut=a_ratio)
+    l_labels, l_q = results["leiden"]
+    l_q64 = modularity64(g, l_labels)
+    require(abs(l_q - l_q64) <= TOL_MODULARITY, f"leiden modularity {l_q} vs float64 {l_q64}")
+    out["leiden"] = dict(modularity=l_q, modularity64=l_q64, abs_err=abs(l_q - l_q64),
+                         communities=int(torch.unique(l_labels).numel()))
+
+    # ego graph: vertex 0 and its neighbours, and the edges among them
+    esub, emap = results["ego_graph"]
+    nbrs = torch.unique(torch.cat([csr.minors[csr.offsets[0]:csr.offsets[1]].long(),
+                                   torch.zeros(1, dtype=torch.long, device=DEV)]))
+    require(torch.equal(emap.long(), nbrs), "ego_graph vertices are not vertex 0's neighbourhood")
+    inside = torch.zeros(v, dtype=torch.bool, device=DEV)
+    inside[nbrs] = True
+    want_e = int((inside[csr.majors.long()] & inside[csr.minors.long()]).sum())
+    require(esub.num_edges == want_e, f"ego_graph has {esub.num_edges} edges, want {want_e}")
+    out["ego_graph"] = dict(vertices=esub.num_vertices, edges=esub.num_edges)
+
+    # triangles at the small scale against the min-degree probe
+    tri_ref, _ = degree_probe_triangles(gs)
+    tri = results["triangle_count"]
+    require(torch.equal(tri.long(), tri_ref), "triangle counts differ from the probe count")
+    out["triangle_count"] = dict(triangles=int(tri_ref.sum()) // 3, max_per_vertex=int(tri.max()))
+
+    # k-truss: every edge of the result closes at least k - 2 triangles in
+    # it, and the result is a subgraph of the input
+    kt = results["ktruss"]
+    _, common = degree_probe_triangles(kt)
+    kcsr = kt.csr()
+    loops = kcsr.majors == kcsr.minors
+    require(bool((common[~loops] >= KTRUSS_K - 2).all()), "a k-truss edge has too little support")
+    gkeys = gs.csr().majors.long() * gs.num_vertices + gs.csr().minors.long()
+    kkeys = kcsr.majors.long() * gs.num_vertices + kcsr.minors.long()
+    pos = torch.searchsorted(gkeys, kkeys).clamp(max=gkeys.numel() - 1)
+    require(bool((gkeys[pos] == kkeys).all()), "k-truss edge not in the graph")
+    out["ktruss"] = dict(k=KTRUSS_K, edges=kt.num_edges,
+                         min_support=int(common[~loops].min()) if kt.num_edges else None)
+
+    # ECG: the returned modularity is that of its labels on the reweighted
+    # graph, which is not recomputed here; the labels' modularity on the
+    # graph itself is recorded
+    e_labels, e_q = results["ecg"]
+    require(e_labels.shape == (gs.num_vertices,) and 0 <= e_q <= 1, "ecg result")
+    out["ecg"] = dict(modularity_reweighted=e_q, modularity64=modularity64(gs, e_labels),
+                      communities=int(torch.unique(e_labels).numel()))
+
+    for name in ("spectral_balanced_cut", "spectral_modularity"):
+        lab10 = results[name]
+        require(lab10.shape == (small[10].num_vertices,) and set(lab10.tolist()) <= set(range(4)),
+                f"{name} labels")
+        out[name] = dict(modularity64=modularity64(small[10], lab10))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"community path checks: {json.dumps({n: out[n] for n in out if n not in ('seconds', 'launches')})}")
+    out["warm"] = warm_breakdown(phases)
+    return out
+
+
 # ----------------------------------------------------------------- main
 
 SOURCES = {
     "spmv_sum": ("cugraph_tpu_torch/csrc/spmv.cu", "cugraph_tpu/prims/pallas/spmv3.py:862"),
     "spmv_minplus": ("cugraph_tpu_torch/csrc/spmv.cu", "cugraph_tpu/prims/pallas/spmv2.py:1675"),
     "spmm_rows": ("cugraph_tpu_torch/csrc/spmm_row.cu", "cugraph_tpu/prims/pallas/spmm_row.py:225"),
+    "cumsum_flat": ("cugraph_tpu_torch/csrc/scan.cu", "cugraph_tpu/prims/pallas/scan.py:41"),
+    "assemble_chunks": ("cugraph_tpu_torch/csrc/assemble.cu",
+                        "cugraph_tpu/prims/pallas/spmv2.py:1605"),
 }
 ALSO_REPLACES = {
     "spmv_sum": [
@@ -942,6 +1440,8 @@ ALSO_REPLACES = {
         "cugraph_tpu/prims/pallas/spmv2.py:1989",
         "cugraph_tpu/prims/pallas/spmv2.py:2017",
     ],
+    "cumsum_flat": ["cugraph_tpu/prims/pallas/scan.py:59"],
+    "assemble_chunks": [],
 }
 
 
@@ -996,24 +1496,43 @@ def main() -> int:
     g = rmat_graph(args.scale, args.seed, weighted=True)
     weighted = weighted_full_shape_kernels(g, args.seed)
     wpath = weighted_path(g, args.seed)
+
+    # 7. the entry points of the scan and the chunk assembly, on the
+    # weighted graph's CSC weights and the same E
+    scan = scan_assemble_path(g, args.seed)
     del g
+    torch.cuda.empty_cache()
+
+    # 8. community path
+    cpath = community_path(args.scale, min(SMALL_SCALE, args.scale), args.seed)
+    torch.cuda.empty_cache()
+
+    def on_path(name, launches):
+        return sum(n.get(name, 0) for n in launches.values())
 
     lines = []
-    for name, m in kernels.items():
+    for name, m in dict(kernels, **scan["kernels"]).items():
         source, replaces = SOURCES[name]
-        by_path = dict(main_path=path["launches"][name],
-                       mg_path=mgp["launches"][name],
-                       weighted_path=sum(n[name] for n in wpath["launches"].values()))
+        if name in scan["launches"]:
+            launches = scan["launches"][name]
+            by_path = dict(scan_assemble_path=launches)
+        else:
+            launches = path["launches"][name]
+            by_path = dict(main_path=launches, mg_path=mgp["launches"][name],
+                           weighted_path=on_path(name, wpath["launches"]))
+        by_path["community_path"] = on_path(name, cpath["launches"])
         extra = {"weighted": weighted[name]} if name in weighted else {}
-        extra["mg_block"] = mgp["block"][name]
+        if name in mgp["block"]:
+            extra["mg_block"] = mgp["block"][name]
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            also_replaces=ALSO_REPLACES[name], launches=path["launches"][name],
+            also_replaces=ALSO_REPLACES[name], launches=launches,
             launches_by_path=by_path, **m, **extra,
         ))
     log(f"total: {time.perf_counter() - t_start:.1f} s after device setup")
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
-                      "mg_path": mgp, "weighted_path": wpath, "card": smi}))
+                      "mg_path": mgp, "weighted_path": wpath, "scan_assemble_path": scan,
+                      "community_path": cpath, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

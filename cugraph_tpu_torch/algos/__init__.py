@@ -7,3 +7,19 @@ from .centrality import (
 )
 from .link_analysis import hits, pagerank
 from .traversal import bfs, extract_bfs_paths, sssp, two_hop_neighbors
+from .community import (
+    analyze_clustering_edge_cut,
+    analyze_clustering_modularity,
+    analyze_clustering_ratio_cut,
+    ecg,
+    ego_graph,
+    ktruss,
+    leiden,
+    louvain,
+    modularity,
+    spectral_balanced_cut_clustering,
+    spectral_modularity_maximization_clustering,
+    triangle_count,
+)
+from .components import strongly_connected_components, weakly_connected_components
+from .cores import core_number, k_core

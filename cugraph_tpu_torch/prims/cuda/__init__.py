@@ -2,6 +2,10 @@
 
 - spmv: ``spmv_sum`` and ``spmv_minplus`` over a CSC or CSR (csrc/spmv.cu).
 - spmm_row: ``spmm_rows`` over a CSC, f32 or bf16 operands (csrc/spmm_row.cu).
+- scan: ``cumsum_flat``, the f32 prefix sum (csrc/scan.cu), and
+  ``segment_sums_from_cumsum``.
+- assemble: ``assemble_chunks``, the chunk-granular row copy
+  (csrc/assemble.cu).
 - build: nvcc build into build/cugraph_tpu_torch/ and ctypes loading.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
@@ -10,6 +14,8 @@ version (``*_reference``, same module) for a CPU tensor.
 
 import torch
 
+from .assemble import assemble_chunks, assemble_chunks_reference
+from .scan import cumsum_flat, cumsum_flat_reference, segment_sums_from_cumsum
 from .spmm_row import spmm_rows, spmm_rows_reference
 from .spmv import spmv_minplus, spmv_minplus_reference, spmv_sum, spmv_sum_reference
 

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cugraph_tpu_torch"
-SOURCES = ("spmv", "spmm_row")
+SOURCES = ("spmv", "spmm_row", "scan", "assemble")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 
 # The C interface of each library: every pointer and the stream are
 # c_void_p, so ctypes never cuts them to 32 bits.
-_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "spmv": {
         # offsets, minors, weights, x, y, rows, stream
@@ -40,6 +40,15 @@ SIGNATURES = {
     "spmm_row": {
         # offsets, minors, weights, x, y, rows, f, bf16, vec4, stream
         "cgt_spmm_rows": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
+    },
+    "scan": {
+        # x, y, scratch, n, stream
+        "cgt_cumsum_flat": [_VP, _VP, _VP, _I64, _VP],
+    },
+    "assemble": {
+        # binned, chunk_src, chunk_dst, inv, out, n_steps, in_chunks,
+        # out_chunks, vec_per_chunk, stream
+        "cgt_assemble_chunks": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     },
 }
 

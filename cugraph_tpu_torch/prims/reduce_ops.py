@@ -26,6 +26,30 @@ class ReduceOp:
             return float("inf") if dtype.is_floating_point else info.max
         return float("-inf") if dtype.is_floating_point else info.min
 
+    def combine(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if self.scatter == "sum":
+            return a + b
+        return torch.minimum(a, b) if self.scatter == "amin" else torch.maximum(a, b)
+
+    def reduce(self, values: torch.Tensor, init=None) -> torch.Tensor:
+        """Reduce along dim 0 in the values' dtype (bools count as int32),
+        combined with ``init`` if given; the identity when there are no
+        values."""
+        if values.dtype == torch.bool:
+            values = values.to(torch.int32)
+        if values.shape[0] == 0:
+            out = torch.full(
+                tuple(values.shape[1:]), self.identity(values.dtype),
+                dtype=values.dtype, device=values.device,
+            )
+        elif self.scatter == "sum":
+            out = values.sum(0, dtype=values.dtype)
+        else:
+            out = values.amin(0) if self.scatter == "amin" else values.amax(0)
+        if init is not None:
+            out = self.combine(out, torch.as_tensor(init, dtype=out.dtype, device=out.device))
+        return out
+
     def segment(
         self, values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     ) -> torch.Tensor:

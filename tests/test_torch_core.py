@@ -190,3 +190,48 @@ def test_scramble_equals_jax():
     got = ct.scramble_vertex_ids(torch.from_numpy(ids), 12).numpy()
     np.testing.assert_array_equal(got, np.asarray(jax_scramble(ids, 12)))
     assert np.array_equal(np.sort(got), ids)  # a bijection
+
+
+@pytest.mark.parametrize("name", ["karate", "rmat10w"])
+def test_relabel_equals_jax(name):
+    src, dst, w, v = GRAPHS[name]()
+    perm = np.random.default_rng(1).permutation(v).astype(np.int32)
+    jg = cg.from_edgelist(src, dst, w, num_vertices=v)
+    tg = ct.from_edgelist(src, dst, w, num_vertices=v, device="cpu")
+    jr, tr = jconvert.relabel(jg, perm), ct.core.relabel(tg, torch.from_numpy(perm))
+    _assert_adj_equal(tr.csr(), jr.csr())
+    _assert_adj_equal(tr.csc(), jr.csc())
+
+
+@pytest.mark.parametrize("relabel_result", [True, False])
+@pytest.mark.parametrize("name", ["karate", "rmat10w"])
+def test_induced_subgraph_equals_jax(name, relabel_result):
+    src, dst, w, v = GRAPHS[name]()
+    sym = name == "karate"
+    keep = np.random.default_rng(2).integers(0, v, v // 2)  # repeats, unsorted
+    jg = cg.from_edgelist(src, dst, w, num_vertices=v, symmetrize=sym)
+    tg = ct.from_edgelist(src, dst, w, num_vertices=v, symmetrize=sym, device="cpu")
+    js, jmap = jconvert.induced_subgraph(jg, keep, relabel_result)
+    ts, tmap = ct.core.induced_subgraph(tg, torch.from_numpy(keep), relabel_result)
+    assert tmap.dtype == torch.int32
+    np.testing.assert_array_equal(tmap.numpy(), jmap)
+    assert ts.num_vertices == js.num_vertices and ts.is_symmetric == js.is_symmetric
+    _assert_adj_equal(ts.csr(), js.csr())
+    _assert_adj_equal(ts.csc(), js.csc())
+
+
+@pytest.mark.parametrize("name", ["karate", "rmat10", "rmat10w"])
+def test_coarsen_graph_equals_jax(name):
+    """Parallel edges merge with summed weights, in the same sort order:
+    weights EQUAL (the same f32 terms in the same order on the CPU)."""
+    from cugraph_tpu.core.coarsen import coarsen_graph as jcoarsen
+
+    src, dst, w, v = GRAPHS[name]()
+    labels = (np.random.default_rng(3).integers(0, 40, v) * 3).astype(np.int32)
+    jg = cg.from_edgelist(src, dst, w, num_vertices=v, symmetrize=True)
+    tg = ct.from_edgelist(src, dst, w, num_vertices=v, symmetrize=True, device="cpu")
+    jc, jids = jcoarsen(jg, labels)
+    tc, tids = ct.core.coarsen_graph(tg, torch.from_numpy(labels))
+    np.testing.assert_array_equal(tids.numpy(), jids)
+    assert tc.num_vertices == jc.num_vertices and tc.is_symmetric
+    _assert_adj_equal(tc.csr(), jc.csr())

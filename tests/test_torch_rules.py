@@ -6,7 +6,9 @@
 - device=None means CUDA: without CUDA every entry point raises
   RuntimeError instead of running on the CPU.
 - CPU tensors take the kernels' plain versions: no launch is counted,
-  in one process or in the ranks of a gloo group.
+  in one process or in the ranks of a gloo group, for every kernel and
+  every entry point (the community, components and cores algorithms
+  included).
 """
 
 import ast
@@ -22,8 +24,11 @@ from cugraph_tpu_torch import dist as ctd
 from cugraph_tpu_torch.algos import traversal
 from cugraph_tpu_torch.gnn import GCN, GraphSAGE
 from cugraph_tpu_torch.prims.cuda import (
+    assemble_chunks,
+    cumsum_flat,
     pull_aggregate,
     push_aggregate,
+    segment_sums_from_cumsum,
     spmm_rows,
     spmv_minplus,
     spmv_sum,
@@ -46,7 +51,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "cugraph_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
     assert len(files) > 15
-    assert ROOT / "cugraph_tpu_torch" / "dist" / "mg_algos.py" in files
+    for mod in ("dist/mg_algos.py", "algos/community.py", "algos/components.py",
+                "algos/cores.py", "prims/keyed.py", "prims/intersection.py",
+                "prims/cuda/scan.py", "prims/cuda/assemble.py", "core/coarsen.py"):
+        assert ROOT / "cugraph_tpu_torch" / mod in files
     bad = [
         (str(f.relative_to(ROOT)), mod)
         for f in files
@@ -82,7 +90,7 @@ def test_default_device_without_cuda_raises(name, monkeypatch):
 
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):
-    counters = (spmv_sum, spmv_minplus, spmm_rows)
+    counters = (spmv_sum, spmv_minplus, spmm_rows, cumsum_flat, assemble_chunks)
     before = [fn.launches for fn in counters]
     rng = np.random.default_rng(0)
     src, dst = rng.integers(0, 50, 300), rng.integers(0, 50, 300)
@@ -107,7 +115,23 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
     dist, pred = ct.sssp(gw, 0)
     ct.extract_bfs_paths(gw, dist, pred, [int(torch.isfinite(dist).nonzero()[-1])])
     traversal.two_hop_neighbors(g)
-    assert [fn.launches for fn in counters] == before == [0, 0, 0]
+    segment_sums_from_cumsum(cumsum_flat(torch.ones(g.num_edges)), g.csc().offsets, 50)
+    assemble_chunks(x[:48].view(12, 4), torch.tensor([2, 0]), torch.tensor([1, 0]), 2, 6)
+    gs = ct.from_edgelist(src, dst, num_vertices=50, symmetrize=True, device="cpu")
+    ct.weakly_connected_components(g)
+    ct.strongly_connected_components(g)
+    ct.k_core(gs, 2, ct.core_number(gs))
+    labels, _ = ct.louvain(gs)
+    ct.leiden(gs)
+    ct.analyze_clustering_edge_cut(gs, labels)
+    ct.analyze_clustering_ratio_cut(gs, labels)
+    ct.triangle_count(gs)
+    ct.ktruss(gs, 3)
+    ct.ecg(gs, ensemble_size=2)
+    ct.ego_graph(gs, 0, 2)
+    ct.spectral_balanced_cut_clustering(gs, 2)
+    ct.spectral_modularity_maximization_clustering(gs, 2)
+    assert [fn.launches for fn in counters] == before == [0] * len(counters)
 
 
 def test_cpu_ranks_launch_no_kernel():
