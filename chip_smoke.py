@@ -7,14 +7,22 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
 
 1. Device: require CUDA; print the card's name and power limit.
 2. Build: compile the CUDA kernels from csrc/ with nvcc (sm_90a).
-3. Kernels against their plain versions, on a small skewed graph and at
-   the main path's shapes: spmv_sum, spmv_minplus, spmm_rows (both modes,
-   and an F other than 128). Median times, bounds, library yardsticks.
+3. Kernels against their plain versions, on a small skewed graph, on an
+   adversarial graph for the merge-path tiles (a 2^18-edge hub row, rows
+   ending exactly on tile boundaries, empty first, middle and last rows)
+   and at the main path's shapes: spmv_sum, spmv_minplus, spmm_rows (both
+   modes, and an F other than 128), each sum kernel launched twice and
+   bit-equal. Median times of single calls and, for the sum kernels, of
+   back-to-back calls; bounds, library yardsticks, and each tile plan's
+   one-time cost.
 4. Main path at RMAT scale 21, edgefactor 16, scrambled: generate ->
    renumber -> from_edgelist -> pagerank(tol=0, 50 iterations) ->
    bfs(0) -> 2-layer GraphSAGE forward (F = 128 -> 128 -> 64), each held
    against a reference computed here from the plain versions. The launch
-   counters are set to 0 just before and read just after.
+   counters are set to 0 just before and read just after. Then the
+   gradient path: dX of one bf16 mean spmm_aggregate, whose backward
+   launches spmm_rows over the CSR, against autograd through the plain
+   version.
 5. MG path on the main path's edge list, on a 1 x 1 mesh over NCCL
    (world size 1): distribute_edgelist -> mg_pagerank(tol=0, 50
    iterations) -> mg_bfs(0) -> mg_sage_forward (F = 128 -> 128 -> 64),
@@ -57,6 +65,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import socket
@@ -75,6 +84,11 @@ PEAK_F32_FLOP_PER_S = 67e12
 DEV = torch.device("cuda")
 # tolerances (see check_* below)
 TOL_SUM_REL = 1e-5  # spmv_sum, spmm_rows f32 / bf16 vs float64 plain version
+# spmm_aggregate's bf16 dX against autograd through the plain version: the
+# kernel rounds each term of dY to bf16, autograd rounds the summed row;
+# each is within 2^-8 (bf16's unit roundoff) of the row's sum of |dY| from
+# the exact sum, so 2^-7, plus the f32 sums' TOL_SUM_REL
+TOL_GRAD_BF16_REL = 2.0**-7 + TOL_SUM_REL
 TOL_PAGERANK_SUM = 1e-4
 TOL_SAGE_ABS = 1e-4
 # PageRank, Katz, eigenvector and HITS in f32 vs float64 after the same
@@ -132,7 +146,8 @@ def require(cond: bool, msg: str) -> None:
 
 def median_ms(fn, reps: int) -> float:
     """Median over ``reps`` launches, each between two CUDA events, after
-    one warm-up call."""
+    one warm-up call: the card's time plus the host time the call spends
+    before its first launch."""
     fn()
     sync()
     times = []
@@ -145,6 +160,54 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, reps: int) -> float:
+    """A call's time on the card alone: the median over 3 rounds of
+    ``reps`` back-to-back calls, each round between two CUDA events and
+    divided by ``reps``, after one warm-up call. The host enqueues the
+    next call while the card runs this one, so a call's host time shows
+    only where it exceeds the card's."""
+    fn()
+    sync()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def back_to_back(kernel, library, reps) -> dict:
+    """The kernel's wrapper and the library call, each by back_to_back_ms;
+    ``ms`` less ``back_to_back_ms`` is about the host time of a call."""
+    return dict(back_to_back_ms=back_to_back_ms(kernel, reps),
+                library_back_to_back_ms=back_to_back_ms(library, reps))
+
+
+def plan_ms(adj, items: int) -> float:
+    """The one-time cost of a merge-path plan (``merge_path_tiles`` on the
+    card, no host read), timed on its own."""
+    from cugraph_tpu_torch.prims.cuda._partition import merge_path_tiles
+
+    return median_ms(lambda: merge_path_tiles(adj.offsets, adj.num_edges, items), 5)
+
+
+@contextlib.contextmanager
+def tile_constant(module, name: str, value):
+    """Set a kernel module's tile constant to ``value`` inside the block
+    (None keeps it); the adjacency caches a plan for each tile size."""
+    old = getattr(module, name)
+    setattr(module, name, old if value is None else value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 # ---------------------------------------------------------------- graphs
@@ -191,18 +254,30 @@ def skewed_graph(seed: int, v: int = 5000, e: int = 60000, weighted: bool = True
 # ------------------------------------------------------- kernel checks
 
 
-def sum_error(adj, y, x, reference, **kw):
+def sum_reference(adj, x, reference, **kw):
+    """(float64 plain result, the row's sum of |w * x|) for sum_error."""
+    ref = reference(adj, x.double(), **kw)
+    abs_adj = adj if adj.weights is None else dataclasses.replace(adj, weights=adj.weights.abs())
+    return ref, reference(abs_adj, x.double().abs(), **kw)
+
+
+def sum_error(adj, y, x, reference, ref_size=None, **kw):
     """(max abs error, max relative error) of a sum kernel against its
     plain version in float64. The relative error of a row is taken
     against the row's sum of |w * x|, the size of its terms: cancellation
     makes the plain relative error of a sum meaningless."""
-    ref = reference(adj, x.double(), **kw)
-    abs_adj = adj if adj.weights is None else dataclasses.replace(adj, weights=adj.weights.abs())
-    size = reference(abs_adj, x.double().abs(), **kw)
+    ref, size = ref_size if ref_size is not None else sum_reference(adj, x, reference, **kw)
     err = (y.double() - ref).abs()
     require(bool((err[size == 0] == 0).all()), "rows with no terms must be exactly 0")
     rel = (err / size.clamp(min=1e-300)).max().item() if err.numel() else 0.0
     return err.max().item() if err.numel() else 0.0, rel
+
+
+def check_relaunch(name, y, fn) -> None:
+    """A second launch on the same inputs gives the same bits (no atomics)."""
+    y2 = fn()
+    sync()
+    require(torch.equal(y, y2), f"{name}: two launches differ")
 
 
 def check_spmv_sum(adj, x) -> float:
@@ -210,6 +285,7 @@ def check_spmv_sum(adj, x) -> float:
 
     y = spmv_sum(adj, x)
     sync()
+    check_relaunch("spmv_sum", y, lambda: spmv_sum(adj, x))
     abs_err, rel = sum_error(adj, y, x, spmv_sum_reference)
     require(rel <= TOL_SUM_REL, f"spmv_sum relative error {rel} > {TOL_SUM_REL}")
     return abs_err
@@ -232,13 +308,45 @@ def check_spmm_rows(adj, x, precision) -> float:
     y = spmm_rows(adj, x, precision=precision)
     sync()
     require(y.shape == (adj.num_majors, x.shape[1]), "spmm_rows output shape")
+    check_relaunch("spmm_rows", y, lambda: spmm_rows(adj, x, precision=precision))
     abs_err, rel = sum_error(adj, y, x, spmm_rows_reference, precision=precision)
     require(rel <= TOL_SUM_REL, f"spmm_rows {precision} F={x.shape[1]} relative error {rel}")
     return abs_err
 
 
+def adversarial_graph(seed: int, weighted: bool, tile_sizes):
+    """A CSC that stresses the kernels' tile carries: an empty first row;
+    one destination with 2^18 + 4321 in-edges (at least 64 tiles of every
+    size used); 300 rows of 0-600 edges (many cut by one tile boundary);
+    for each tile size in ``tile_sizes``, 8 rows whose end marker is the
+    last item of a tile, then 5 empty rows; 2,000 rows of 0-40 edges; 7
+    empty last rows. Sources are skewed over all the rows."""
+    import cugraph_tpu_torch as ct
+
+    gen = torch.Generator().manual_seed(seed)
+    deg = [0, (1 << 18) + 4321] + torch.randint(0, 600, (300,), generator=gen).tolist()
+    pos = sum(deg) + len(deg)  # merge-path items so far: edges and end markers
+    for k in tile_sizes:
+        for _ in range(8):
+            d = (k - 1 - pos) % k  # this row's end marker lands on position k - 1 mod k
+            deg.append(d)
+            pos += d + 1
+        deg += [0] * 5
+        pos += 5
+    deg += torch.randint(0, 40, (2000,), generator=gen).tolist() + [0] * 7
+    v = len(deg)
+    dst = torch.repeat_interleave(torch.arange(v), torch.tensor(deg))
+    src = (torch.rand(dst.numel(), generator=gen) ** 3 * v).long()
+    w = torch.randn(dst.numel(), generator=gen) if weighted else None
+    g = ct.from_edgelist(src, dst, w, num_vertices=v, device=DEV)
+    ends = g.csc().offsets[1:].long().cpu() + torch.arange(v)
+    for k in tile_sizes:
+        require(int(((ends % k) == k - 1).sum()) >= 8, f"rows ending on {k}-item tile boundaries")
+    return g
+
+
 def small_graph_checks(seed: int) -> None:
-    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+    from cugraph_tpu_torch.prims.cuda import spmm_row, spmm_rows, spmv, spmv_minplus, spmv_sum
 
     counters = (spmv_sum, spmv_minplus, spmm_rows)
     before = [k.launches for k in counters]
@@ -257,10 +365,38 @@ def small_graph_checks(seed: int) -> None:
             check_spmm_rows(adj, xf, "f32")
             check_spmm_rows(adj, xf, "bf16")
     require(
-        [k.launches - b for k, b in zip(counters, before)] == [2, 4, 8],
+        [k.launches - b for k, b in zip(counters, before)] == [4, 4, 16],
         "every small-graph check must launch its kernel",
     )
     log("small skewed graphs: spmv_sum, spmv_minplus, spmm_rows (f32, bf16; F=128, 37) ok")
+
+    # the adversarial graph, at the default tiles and at small ones (the hub
+    # then spans thousands of tiles)
+    spmm_tiles = (spmm_row.ITEMS_PER_TILE, 32)
+    spmv_ipts = (spmv.SUM_ITEMS_PER_THREAD, 1)
+    spmv_tiles = tuple(spmv.SUM_THREADS * i for i in spmv_ipts)
+    before = [k.launches for k in counters]
+    for weighted in (True, False):
+        g = adversarial_graph(seed + 10 + weighted, weighted, spmm_tiles + spmv_tiles)
+        adj = g.csc()
+        x = torch.randn(g.num_vertices, generator=gen).to(DEV)
+        for ipt in spmv_ipts:
+            with tile_constant(spmv, "SUM_ITEMS_PER_THREAD", ipt):
+                check_spmv_sum(adj, x)
+        for f in (128, 37):
+            xf = torch.randn(g.num_vertices, f, generator=gen).to(DEV)
+            for precision in ("f32", "bf16"):
+                for k in spmm_tiles:
+                    with tile_constant(spmm_row, "ITEMS_PER_TILE", k):
+                        check_spmm_rows(adj, xf, precision)
+    require(
+        [k.launches - b for k, b in zip(counters, before)] == [8, 0, 32],
+        "every adversarial-graph check must launch its kernel",
+    )
+    log(f"adversarial graphs (V={g.num_vertices}, E={g.num_edges}, hub in-degree "
+        f"{int(g.in_degrees().max())}): spmv_sum (tiles of {list(spmv_tiles)}), "
+        f"spmm_rows (tiles of {list(spmm_tiles)}; f32, bf16; F=128, 37) ok, "
+        f"each bit-equal on a second launch")
 
 
 def bound(bytes_moved: float, flops: float):
@@ -306,6 +442,7 @@ def weighted_full_shape_kernels(g, seed: int) -> dict:
         plain_ms=median_ms(lambda: spmv_sum_reference(adj, x), 5),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
+        **back_to_back(lambda: spmv_sum(adj, x), lambda: torch.mv(lib_a, x), 20),
     )
 
     # spmv_minplus: an SSSP sweep, finite distances on a tenth of the
@@ -325,11 +462,14 @@ def weighted_full_shape_kernels(g, seed: int) -> dict:
 
 
 def full_shape_kernels(g, seed: int) -> dict:
-    """Each kernel at the main path's shapes: check, time, bound."""
+    """Each kernel at the main path's shapes: check, time, bound; the sum
+    kernels also back to back, and the one-time cost of their tile plans."""
     from cugraph_tpu_torch.prims.cuda import (
+        spmm_row,
         spmm_rows,
         spmm_rows_reference,
         spmv_minplus,
+        spmv,
         spmv_minplus_reference,
         spmv_sum,
         spmv_sum_reference,
@@ -354,6 +494,8 @@ def full_shape_kernels(g, seed: int) -> dict:
         plain_ms=median_ms(lambda: spmv_sum_reference(adj, x), 5),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
+        **back_to_back(lambda: spmv_sum(adj, x), lambda: torch.mv(lib_a, x), 20),
+        plan_ms=plan_ms(adj, spmv.SUM_THREADS * spmv.SUM_ITEMS_PER_THREAD),
     )
 
     # spmv_minplus: a BFS sweep, x = id in the frontier, +inf elsewhere
@@ -383,7 +525,8 @@ def full_shape_kernels(g, seed: int) -> dict:
         plain_ms=median_ms(lambda: spmm_rows_reference(adj, xs, precision="bf16"), 3),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=median_ms(lambda: lib_a @ xs, 10),
-        mode="bf16",
+        **back_to_back(lambda: spmm_rows(adj, xs, precision="bf16"), lambda: lib_a @ xs, 10),
+        plan_ms=plan_ms(adj, spmm_row.ITEMS_PER_TILE), mode="bf16",
         f32_ms=median_ms(lambda: spmm_rows(adj, xs, precision="f32"), 10),
         f32_max_abs_err=err_f32, f40_f32_max_abs_err=err_f40,
     )
@@ -533,7 +676,61 @@ def main_path(scale: int, seed: int) -> dict:
     log(f"graphsage: max abs error {sage_err:.3e} vs the layers applied by hand")
     return dict(seconds=seconds, launches=launches, pagerank_iterations=iters,
                 pagerank_rel_err=pr_err, pagerank_max_abs_err=pr_abs, bfs_levels=levels, bfs_reached=reached,
-                graphsage_err=sage_err, warm=warm_breakdown(phases))
+                graphsage_err=sage_err, warm=warm_breakdown(phases),
+                gradient=gradient_path(g, feats, seed))
+
+
+def gradient_path(g, feats, seed: int) -> dict:
+    """dX of one mean spmm_aggregate in bf16 mode at full shape: the forward
+    and the backward each launch spmm_rows once (the backward over the
+    CSR; counters set to 0 just before the backward and read just after).
+    dX is held against autograd through the plain version on the card and
+    against the plain bf16 product over the CSR in float64."""
+    from cugraph_tpu_torch.gnn import spmm_aggregate
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmm_rows_reference
+
+    v = g.num_vertices
+    mode = "bf16" if feats.is_cuda else "f32"  # the mode spmm_aggregate takes
+    r = torch.randn(v, feats.shape[1], device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(seed + 8))
+    deg = g.in_degrees().float().clamp(min=1)[:, None]
+    x = feats.clone().requires_grad_()
+    spmm_rows.launches = 0
+    t = time.perf_counter()
+    y = spmm_aggregate(g, x, op="mean")
+    sync()
+    forward_s = time.perf_counter() - t
+    forward = spmm_rows.launches
+    loss = (y * r).sum()
+    spmm_rows.launches = 0
+    t = time.perf_counter()
+    loss.backward()
+    sync()
+    backward_s = time.perf_counter() - t
+    backward = spmm_rows.launches
+    log(f"gradient path: spmm_rows launches forward {forward}, backward {backward}; "
+        f"seconds forward {forward_s:.4f}, backward {backward_s:.4f}")
+    require(forward == 1 and backward == 1, "spmm_aggregate's backward must launch spmm_rows")
+    dx = x.grad
+    require(dx.shape == feats.shape and bool(torch.isfinite(dx).all()), "dX shape or finiteness")
+    # the kernel's contract: the bf16 product over the CSR of dL/dY = r / deg
+    dy = r / deg
+    abs_err, rel = sum_error(g.csr(), dx, dy, spmm_rows_reference, precision=mode)
+    require(rel <= TOL_SUM_REL, f"dX relative error {rel} vs the plain {mode} CSR product")
+    # autograd through the plain version rounds the summed gradient to bf16
+    # (the backward of x.to(bfloat16)); the kernel rounds each term of dY
+    # instead: each within 2^-8 of the row's sum of |dY| of the exact sum
+    xr = feats.clone().requires_grad_()
+    ((spmm_rows_reference(g.csc(), xr, precision=mode) / deg) * r).sum().backward()
+    _, auto_rel = sum_error(g.csr(), dx, dy, spmm_rows_reference,
+                            (xr.grad.double(), spmm_rows_reference(g.csr(), dy.double().abs())))
+    require(auto_rel <= TOL_GRAD_BF16_REL,
+            f"dX vs autograd through the plain version: {auto_rel} > {TOL_GRAD_BF16_REL}")
+    log(f"gradient path: dX within {rel:.3e} of the plain {mode} CSR product, {auto_rel:.3e} of "
+        f"autograd through the plain version (of the row's sum of |dY|)")
+    return dict(launches={"spmm_rows": backward}, forward_launches=forward,
+                seconds=dict(forward=forward_s, backward=backward_s),
+                max_abs_err=abs_err, rel_err=rel, autograd_rel_err=auto_rel)
 
 
 def warm_breakdown(phases) -> dict:
@@ -1519,7 +1716,8 @@ def main() -> int:
         else:
             launches = path["launches"][name]
             by_path = dict(main_path=launches, mg_path=mgp["launches"][name],
-                           weighted_path=on_path(name, wpath["launches"]))
+                           weighted_path=on_path(name, wpath["launches"]),
+                           gradient_path=path["gradient"]["launches"].get(name, 0))
         by_path["community_path"] = on_path(name, cpath["launches"])
         extra = {"weighted": weighted[name]} if name in weighted else {}
         if name in mgp["block"]:

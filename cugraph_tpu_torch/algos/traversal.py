@@ -10,9 +10,10 @@ A dense BFS level is one min-plus sweep over the unweighted CSC,
 ``spmv_minplus`` on the card: with x[u] = u for u in the frontier and +inf
 elsewhere, y[v] = min over in-edges of x[u] is finite exactly where v has a
 frontier in-neighbour, and is then the smallest such id, the predecessor.
-Ids ride f32 exactly, so V <= 2^24. From V >= 2^22 on, levels whose
+Ids ride f32 exactly up to V = 2^24. From V >= 2^22 on, levels whose
 frontier is small (out-degree sum <= cap_e and size <= cap_v) take a
-compacted push instead (``_sparse_bfs_level``), as in the JAX package.
+compacted push instead (``_sparse_bfs_level``), as in the JAX package;
+above 2^24 every level does.
 
 SSSP is Bellman-Ford. A weighted graph with E >= 2^18 and V <= 2^24 (the
 JAX package's gate for its min-plus layout) takes full sweeps of the
@@ -100,31 +101,36 @@ def bfs(
     g: Graph,
     sources,
     depth_limit: Optional[int] = None,
+    direction_optimizing: bool = False,
     sparse_caps: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-source BFS on the graph's device. Returns (distances int32,
     predecessors int32); unreachable vertices get INVALID_DISTANCE and
-    predecessor -1. sparse_caps: (cap_e, cap_v) for the compacted levels,
-    default (2^19, 2^17)."""
+    predecessor -1. direction_optimizing is accepted and ignored, as in the
+    JAX package (each level is edge-complete already). sparse_caps:
+    (cap_e, cap_v) for the compacted levels, default (2^19, 2^17). Above
+    MAX_VERTICES, where ids no longer ride f32 exactly, every level is the
+    compacted push, as the JAX package's ``_bfs_jit`` is there."""
+    del direction_optimizing
     v = g.num_vertices
-    expects(v <= MAX_VERTICES, f"bfs takes at most 2^24 vertices, got {v}")
     dev = g.device
     frontier = _source_mask(g, sources)
     limit = int(depth_limit) if depth_limit is not None else v
     cap_e, cap_v = DEFAULT_SPARSE_CAPS if sparse_caps is None else sparse_caps
     cap_v = min(v, int(cap_v))
-    use_sparse = v >= SPARSE_MIN_VERTICES
-    csc = g.csc()
+    dense_ok = v <= MAX_VERTICES
+    use_sparse = v >= SPARSE_MIN_VERTICES or not dense_ok
+    csc = g.csc() if dense_ok else None
     csr = g.csr() if use_sparse else None
-    ids = torch.arange(v, dtype=torch.float32, device=dev)
+    ids = torch.arange(v, dtype=torch.float32, device=dev) if dense_ok else None
 
     visited = frontier.clone()
     dist = torch.where(frontier, 0, INVALID_DISTANCE).to(VERTEX_DTYPE)
     pred = torch.full((v,), INVALID_VERTEX, dtype=VERTEX_DTYPE, device=dev)
     depth = 0
     while depth < limit and bool(frontier.any()):
-        sparse = False
-        if use_sparse:
+        sparse = not dense_ok
+        if use_sparse and dense_ok:
             f_edges = int(torch.where(frontier, csr.degrees(), 0).sum())
             sparse = f_edges <= cap_e and int(frontier.sum()) <= cap_v
         if sparse:

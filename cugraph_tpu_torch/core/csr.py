@@ -34,6 +34,11 @@ class CompressedAdj:
     num_majors: int
     num_minors: int
     num_edges: int
+    # merge-path tile plans of the kernels, by items per tile, computed at
+    # first use (prims/cuda/_partition.py); not an argument, not compared
+    tile_plans: dict = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False
+    )
 
     def degrees(self) -> torch.Tensor:
         return self.offsets[1:] - self.offsets[:-1]

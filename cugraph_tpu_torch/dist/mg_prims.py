@@ -190,7 +190,12 @@ def per_v_incoming_sorted_spmm(mesh: Mesh2D, mgg: MGGraph, feats: torch.Tensor) 
     function of the JAX package's multi-stream bf16-pair pipeline
     (``spmv2.py`` ``_expand_multi_call``, ``_slab_benes_multi_call``,
     ``_sort_reduce_multi_call``); the port has no sorted layout, and the
-    name marks the counterpart."""
+    name marks the counterpart. It has no backward yet: it raises when
+    ``feats`` asks for a gradient, which would otherwise be lost."""
+    if torch.is_grad_enabled() and feats.requires_grad:
+        raise NotImplementedError(
+            "per_v_incoming_sorted_spmm has no backward: run it under torch.no_grad()"
+        )
     x_span = gather_src_values(mesh, feats.to(torch.float32))
     y = spmm_rows(mgg.in_block, x_span, precision="bf16", use_weights=False)
     return _merge_dst_partials(mesh, y, PLUS).to(feats.dtype)

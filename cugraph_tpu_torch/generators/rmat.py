@@ -24,12 +24,15 @@ def rmat_edgelist(
     c: float = 0.19,
     *,
     generator: Optional[torch.Generator] = None,
+    clip_and_flip: bool = False,
     scramble: bool = False,
     device: DeviceLike = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate an R-MAT edge list with 2^scale vertices.
 
     generator: a ``torch.Generator`` on ``device``; default one seeded 0.
+    clip_and_flip: keep only the lower triangle by swapping (src, dst)
+    where src < dst (ref graph_generators.hpp), before any scramble.
     scramble: apply ``scramble_vertex_ids`` to both ends.
     """
     dev = resolve_device(device)
@@ -53,6 +56,8 @@ def rmat_edgelist(
         dbit = u2 < torch.where(sbit, p_dst1_given1, p_dst1_given0)
         src = (src << 1) | sbit.to(dtype)
         dst = (dst << 1) | dbit.to(dtype)
+    if clip_and_flip:
+        src, dst = torch.maximum(src, dst), torch.minimum(src, dst)
     if scramble:
         src = scramble_vertex_ids(src, scale)
         dst = scramble_vertex_ids(dst, scale)

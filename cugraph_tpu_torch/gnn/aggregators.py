@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..core.csr import Graph
-from ..prims.cuda import spmm_rows
+from ..prims.cuda import SpmmRowsFunction, spmm_rows
 from ..prims.dense_spmm import dense_adj_for, dense_spmm
 from ..prims.per_v import per_v_transform_reduce_incoming_e
 from ..prims.reduce_ops import MAXIMUM
@@ -39,18 +39,22 @@ def spmm_aggregate(
     """out[v] = op over incoming neighbours' feature rows. op: sum|mean|max.
 
     precision (sparse path on the card): "bf16_pair" (default) rounds the
-    operands to bf16 and accumulates in f32; "f32" is IEEE f32."""
+    operands to bf16 and accumulates in f32; "f32" is IEEE f32. The sparse
+    path is differentiable in ``features``: its backward is ``spmm_rows``
+    over the graph's CSR, in the same precision, so a graph stored without
+    one raises when a gradient is asked for."""
     if op in ("sum", "mean"):
         a = dense_adj_for(g, use_weights=use_weights)
         if a is not None:
             agg = dense_spmm(a, features)
         else:
-            agg = spmm_rows(
-                g.csc(),
-                features.to(torch.float32).contiguous(),
-                precision=_row_precision(features, precision),
-                use_weights=use_weights,
-            ).to(features.dtype)
+            x = features.to(torch.float32).contiguous()
+            mode = _row_precision(features, precision)
+            if torch.is_grad_enabled() and features.requires_grad:
+                agg = SpmmRowsFunction.apply(x, g.csc(), g.csr(), mode, use_weights)
+            else:
+                agg = spmm_rows(g.csc(), x, precision=mode, use_weights=use_weights)
+            agg = agg.to(features.dtype)
         if op == "mean":
             deg = g.in_degrees().to(features.dtype)
             agg = agg / torch.clamp(deg, min=1)[:, None]

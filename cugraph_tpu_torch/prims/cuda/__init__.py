@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
 - spmv: ``spmv_sum`` and ``spmv_minplus`` over a CSC or CSR (csrc/spmv.cu).
-- spmm_row: ``spmm_rows`` over a CSC, f32 or bf16 operands (csrc/spmm_row.cu).
+- spmm_row: ``spmm_rows`` over a CSC, f32 or bf16 operands (csrc/spmm_row.cu),
+  and ``SpmmRowsFunction``, its autograd form (backward over the CSR).
+- _partition: the merge-path tile plans of ``spmv_sum`` and ``spmm_rows``.
 - scan: ``cumsum_flat``, the f32 prefix sum (csrc/scan.cu), and
   ``segment_sums_from_cumsum``.
 - assemble: ``assemble_chunks``, the chunk-granular row copy
@@ -16,7 +18,7 @@ import torch
 
 from .assemble import assemble_chunks, assemble_chunks_reference
 from .scan import cumsum_flat, cumsum_flat_reference, segment_sums_from_cumsum
-from .spmm_row import spmm_rows, spmm_rows_reference
+from .spmm_row import SpmmRowsFunction, spmm_rows, spmm_rows_reference
 from .spmv import spmv_minplus, spmv_minplus_reference, spmv_sum, spmv_sum_reference
 
 

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -40,7 +41,21 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream_of(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on ``device``. The raw query
+    skips building a ``torch.cuda.Stream``: every launch pays this call."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(device.index)
+
+
+def on_device(device: torch.device):
+    """The device guard a launch needs: none when ``device`` is already
+    the current one, the common case, whose guard would cost more host
+    time than a short kernel's launch."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def raise_on_error(kernel: str, rc: int) -> None:

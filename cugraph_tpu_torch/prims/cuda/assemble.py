@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import raise_on_error, stream_of
+from ._launch import on_device, raise_on_error, stream_of
 
 
 def _check(binned, chunk_src, chunk_dst, chunk_rows: int, out_rows: int) -> int:
@@ -92,7 +92,7 @@ def assemble_chunks(
     cd = chunk_dst.to(torch.int32).contiguous()
     out = torch.empty(out_rows, binned.shape[1], dtype=torch.float32, device=binned.device)
     inv = torch.empty(out_chunks + 1, dtype=torch.int32, device=binned.device)  # + error flag
-    with torch.cuda.device(binned.device):
+    with on_device(binned.device):
         rc = build.load("assemble").cgt_assemble_chunks(
             binned.data_ptr(), cs.data_ptr(), cd.data_ptr(), inv.data_ptr(), out.data_ptr(),
             cs.numel(), in_chunks, out_chunks, width // 4, stream_of(binned.device),

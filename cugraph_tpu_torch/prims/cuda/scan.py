@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import raise_on_error, stream_of
+from ._launch import on_device, raise_on_error, stream_of
 
 TILE = 4096  # elements per CUDA block (csrc/scan.cu kTile)
 
@@ -45,7 +45,7 @@ def cumsum_flat(x: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return y
     scratch = torch.empty(-(-n // TILE), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with on_device(x.device):
         rc = build.load("scan").cgt_cumsum_flat(
             x.data_ptr(), y.data_ptr(), scratch.data_ptr(), n, stream_of(x.device)
         )

@@ -9,6 +9,13 @@ to nearest even) and accumulates the products in f32, the contract of the
 JAX package's ``row_spmm`` (cugraph_tpu/prims/pallas/spmm_row.py:249-254).
 A CUDA tensor launches the kernel (and counts the launch in ``launches``);
 a CPU tensor takes the plain version.
+
+The kernel cuts the adjacency into merge-path tiles of ``ITEMS_PER_TILE``
+rows and edges, one warp each (``_partition.py``); the plan is computed on
+the card at the first call and kept on the adjacency. bf16 mode with
+F % 4 == 0 gathers from a bf16 copy of x made in the same call.
+``SpmmRowsFunction`` makes the product differentiable in x: its backward
+is ``spmm_rows`` over the transposed adjacency (the graph's CSR).
 """
 
 from __future__ import annotations
@@ -17,9 +24,13 @@ import torch
 
 from ...core.csr import CompressedAdj
 from . import build
-from ._launch import check_operands, ptr, raise_on_error, stream_of
+from ._launch import check_operands, on_device, ptr, raise_on_error, stream_of
+from ._partition import tiles_for
 
 PRECISIONS = ("f32", "bf16")
+# rows + edges a warp of the kernel takes (csrc/spmm_row.cu), the fastest
+# of 256-2048 at RMAT scale 21, F = 128 on an H100 (PERF.md §6)
+ITEMS_PER_TILE = 1024
 # edges per step of the plain version: bounds its (chunk, F) gather buffer
 _REFERENCE_CHUNK = 1 << 22
 
@@ -74,13 +85,19 @@ def spmm_rows(
     if x.dim() != 2:
         raise ValueError(f"spmm_rows: x must be (V, F), got shape {tuple(x.shape)}")
     f = x.shape[1]
+    k = ITEMS_PER_TILE
+    tile_row, tile_edge = tiles_for(adj, k)
+    n_tiles = tile_row.numel() - 1
     y = torch.empty((adj.num_majors, f), dtype=torch.float32, device=x.device)
-    vec4 = f % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
-    with torch.cuda.device(x.device):
+    carry = torch.empty((n_tiles, 2, f), dtype=torch.float32, device=x.device)
+    vec4 = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, y, carry))
+    bf16 = precision == "bf16"
+    xb = torch.empty_like(x, dtype=torch.bfloat16) if bf16 and vec4 else None
+    with on_device(x.device):
         rc = build.load("spmm_row").cgt_spmm_rows(
-            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(y),
-            adj.num_majors, f, int(precision == "bf16"), int(vec4),
-            stream_of(x.device),
+            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(xb), x.numel(),
+            ptr(tile_row), ptr(tile_edge), ptr(carry), ptr(y), n_tiles, k, f,
+            int(bf16), int(vec4), stream_of(x.device),
         )
     raise_on_error("spmm_rows", rc)
     spmm_rows.launches += 1
@@ -88,3 +105,21 @@ def spmm_rows(
 
 
 spmm_rows.launches = 0
+
+
+class SpmmRowsFunction(torch.autograd.Function):
+    """Y = A X over the CSC ``csc``, differentiable in X: dX = Aᵀ dY, which is
+    ``spmm_rows`` over the graph's CSR ``csr`` in the same precision mode,
+    with the same weights (they get no gradient). On the CPU both
+    directions take the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, csc, csr, precision, use_weights):
+        ctx.csr, ctx.precision, ctx.use_weights = csr, precision, use_weights
+        return spmm_rows(csc, x, precision=precision, use_weights=use_weights)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = spmm_rows(ctx.csr, dy.contiguous(), precision=ctx.precision,
+                       use_weights=ctx.use_weights)
+        return dx, None, None, None, None

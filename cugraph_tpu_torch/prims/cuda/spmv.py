@@ -9,6 +9,11 @@ the roles of s and d swap; w is the edge weight when
 ``use_weights`` and the graph is weighted, else 1 (sum) or 0 (min). A CUDA
 tensor launches the kernel (and counts the launch in ``launches``); a CPU
 tensor takes the plain version. There is no fallback from one to the other.
+
+``spmv_sum`` cuts the adjacency into merge-path tiles of
+``SUM_THREADS * SUM_ITEMS_PER_THREAD`` rows and edges, one block each
+(``_partition.py``); the plan is computed on the card at the first call
+and kept on the adjacency.
 """
 
 from __future__ import annotations
@@ -19,7 +24,13 @@ import torch
 
 from ...core.csr import CompressedAdj
 from . import build
-from ._launch import check_operands, ptr, raise_on_error, stream_of
+from ._launch import check_operands, on_device, ptr, raise_on_error, stream_of
+from ._partition import tiles_for
+
+SUM_THREADS = 256  # threads a block of the spmv_sum kernel (csrc/spmv.cu)
+# odd, so the threads' shared-memory runs fall in distinct banks; the
+# fastest of 3-15 at RMAT scale 21 on an H100 (PERF.md §6)
+SUM_ITEMS_PER_THREAD = 7
 
 
 def _weights(adj: CompressedAdj, use_weights: bool) -> Optional[torch.Tensor]:
@@ -48,28 +59,33 @@ def spmv_minplus_reference(
     return y.scatter_reduce_(0, adj.majors.to(torch.int64), vals, "amin")
 
 
-def _launch(kernel: str, adj: CompressedAdj, x: torch.Tensor, use_weights: bool):
+def _operands(kernel: str, adj: CompressedAdj, x: torch.Tensor, use_weights: bool):
     w = _weights(adj, use_weights)
     check_operands(kernel, adj, x, w)
     if x.dim() != 1:
         raise ValueError(f"{kernel}: x must be 1-D, got shape {tuple(x.shape)}")
-    y = torch.empty(adj.num_majors, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = getattr(build.load("spmv"), f"cgt_{kernel}")(
-            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(y),
-            adj.num_majors, stream_of(x.device),
-        )
-    raise_on_error(kernel, rc)
-    return y
+    return w, torch.empty(adj.num_majors, dtype=torch.float32, device=x.device)
 
 
-def spmv_sum(adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True) -> torch.Tensor:
+def spmv_sum(
+    adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True
+) -> torch.Tensor:
     """y[d] = sum over in-edges s->d of w * x[s], f32. Carries the TPU's
     keyed reduce (``spmv3.py:862``) and, weighted, the v1 windowed pull
     SpMV (``spmv.py:194``, ``pull_spmv`` 224 / 260)."""
     if x.device.type == "cpu":
         return spmv_sum_reference(adj, x, use_weights=use_weights)
-    y = _launch("spmv_sum", adj, x, use_weights)
+    w, y = _operands("spmv_sum", adj, x, use_weights)
+    ipt = SUM_ITEMS_PER_THREAD
+    tile_row, tile_edge = tiles_for(adj, SUM_THREADS * ipt)
+    n_tiles = tile_row.numel() - 1
+    carry = torch.empty(2 * n_tiles, dtype=torch.float32, device=x.device)
+    with on_device(x.device):
+        rc = build.load("spmv").cgt_spmv_sum(
+            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(tile_row), ptr(tile_edge),
+            ptr(carry), ptr(y), n_tiles, ipt, stream_of(x.device),
+        )
+    raise_on_error("spmv_sum", rc)
     spmv_sum.launches += 1
     return y
 
@@ -80,7 +96,13 @@ def spmv_minplus(
     """y[d] = min over in-edges s->d of x[s] + w (+inf if none), f32, exact."""
     if x.device.type == "cpu":
         return spmv_minplus_reference(adj, x, use_weights=use_weights)
-    y = _launch("spmv_minplus", adj, x, use_weights)
+    w, y = _operands("spmv_minplus", adj, x, use_weights)
+    with on_device(x.device):
+        rc = build.load("spmv").cgt_spmv_minplus(
+            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(y),
+            adj.num_majors, stream_of(x.device),
+        )
+    raise_on_error("spmv_minplus", rc)
     spmv_minplus.launches += 1
     return y
 

@@ -4,8 +4,8 @@ Counterpart of ``cugraph_tpu/prims/frontier.py`` (ref:
 cpp/src/prims/transform_reduce_v_frontier_outgoing_e_by_dst.cuh :337).
 As in the JAX package the frontier is a dense boolean mask over vertices,
 and "emit (dst, payload) and reduce by dst" is an edge-centric masked
-segment reduction over the CSR. The JAX package's ``update_v_frontier`` is
-an elementwise pass-through, so SSSP applies its update inline.
+segment reduction over the CSR. ``update_v_frontier`` is the JAX package's
+elementwise pass-through, kept for the name; SSSP applies its update inline.
 
 The e_op returns (keep, payload) from per-edge tensors:
     e_op(src_ids, dst_ids, src_value, dst_value, weight) -> (keep, payload)
@@ -13,7 +13,7 @@ The e_op returns (keep, payload) from per-edge tensors:
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -47,3 +47,12 @@ def transform_reduce_v_frontier_outgoing_e_by_dst(
     touched = torch.zeros(g.num_vertices, dtype=torch.bool, device=keep.device)
     touched[dst_kept] = True
     return touched, reduced
+
+
+def update_v_frontier(
+    touched: torch.Tensor, reduced: torch.Tensor, values: Any, v_op: Callable
+) -> Tuple[torch.Tensor, Any]:
+    """Apply pushed payloads to vertex state and compute the next frontier
+    (ref update_v_frontier.cuh): v_op(touched, reduced, values) ->
+    (next_frontier_mask, new_values), elementwise."""
+    return v_op(touched, reduced, values)

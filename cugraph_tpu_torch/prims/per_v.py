@@ -14,7 +14,7 @@ supplied) and weight is None for unweighted graphs. Values may be (E,) or
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -31,6 +31,7 @@ def _per_v_transform_reduce(
     majors_are_dst: bool,
     e_op: Callable,
     reduce_op: ReduceOp,
+    init: Any,
     src_values: Optional[torch.Tensor],
     dst_values: Optional[torch.Tensor],
 ) -> torch.Tensor:
@@ -40,7 +41,10 @@ def _per_v_transform_reduce(
         src_ids, dst_ids, _gather(src_values, src_ids), _gather(dst_values, dst_ids),
         adj.weights,
     )
-    return reduce_op.segment(e_vals, majors, adj.num_majors)
+    out = reduce_op.segment(e_vals, majors, adj.num_majors)
+    if init is not None:
+        out = reduce_op.combine(out, torch.as_tensor(init, dtype=out.dtype, device=out.device))
+    return out
 
 
 def per_v_transform_reduce_incoming_e(
@@ -48,12 +52,15 @@ def per_v_transform_reduce_incoming_e(
     e_op: Callable,
     *,
     reduce_op: ReduceOp = PLUS,
+    init: Any = None,
     src_values: Optional[torch.Tensor] = None,
     dst_values: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """out[v] = reduce_op over incoming edges of v of e_op (ref :1082); the
-    identity where v has none."""
-    return _per_v_transform_reduce(g.csc(), True, e_op, reduce_op, src_values, dst_values)
+    """out[v] = reduce_op(init, e_op over incoming edges of v) (ref :1082);
+    without ``init``, the identity where v has none."""
+    return _per_v_transform_reduce(
+        g.csc(), True, e_op, reduce_op, init, src_values, dst_values
+    )
 
 
 def per_v_transform_reduce_outgoing_e(
@@ -61,9 +68,12 @@ def per_v_transform_reduce_outgoing_e(
     e_op: Callable,
     *,
     reduce_op: ReduceOp = PLUS,
+    init: Any = None,
     src_values: Optional[torch.Tensor] = None,
     dst_values: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """out[v] = reduce_op over outgoing edges of v of e_op (ref :1144); the
-    identity where v has none."""
-    return _per_v_transform_reduce(g.csr(), False, e_op, reduce_op, src_values, dst_values)
+    """out[v] = reduce_op(init, e_op over outgoing edges of v) (ref :1144);
+    without ``init``, the identity where v has none."""
+    return _per_v_transform_reduce(
+        g.csr(), False, e_op, reduce_op, init, src_values, dst_values
+    )

@@ -21,6 +21,8 @@ class ReduceOp:
     def identity(self, dtype: torch.dtype):
         if self.scatter == "sum":
             return 0
+        if dtype == torch.bool:
+            return self.scatter == "amin"
         info = torch.finfo(dtype) if dtype.is_floating_point else torch.iinfo(dtype)
         if self.scatter == "amin":
             return float("inf") if dtype.is_floating_point else info.max
@@ -32,10 +34,10 @@ class ReduceOp:
         return torch.minimum(a, b) if self.scatter == "amin" else torch.maximum(a, b)
 
     def reduce(self, values: torch.Tensor, init=None) -> torch.Tensor:
-        """Reduce along dim 0 in the values' dtype (bools count as int32),
-        combined with ``init`` if given; the identity when there are no
-        values."""
-        if values.dtype == torch.bool:
+        """Reduce along dim 0 in the values' dtype (bools count as int32 in
+        a sum), combined with ``init`` if given; the identity when there are
+        no values."""
+        if values.dtype == torch.bool and self.scatter == "sum":
             values = values.to(torch.int32)
         if values.shape[0] == 0:
             out = torch.full(
@@ -73,3 +75,6 @@ MAXIMUM = ReduceOp("maximum", "amax")
 # "any": an arbitrary contributing value (ref reduce_op::any, BFS and SSSP
 # predecessors); the minimum, for determinism, as in the JAX package
 ANY = ReduceOp("any", "amin")
+# logical or of bool values: their max (False is the identity), as the JAX
+# package's segment max over int32
+LOGICAL_OR = ReduceOp("logical_or", "amax")

@@ -134,11 +134,15 @@ def test_sparse_bfs_level_equals_jax():
     np.testing.assert_array_equal(tpc.numpy(), np.asarray(jpc))
 
 
-def test_bfs_checks():
+def test_bfs_checks(monkeypatch):
+    """A source out of range raises; above MAX_VERTICES (lowered here) bfs
+    runs, as the JAX bfs does, and equals it."""
     src, dst, _, v = _karate()
     tg = ct.from_edgelist(src, dst, num_vertices=v, device="cpu")
     with pytest.raises(ct.utils.GraphError):
         ct.bfs(tg, v)
-    too_big = ct.Graph(tg.out_adj, tg.in_adj, traversal.MAX_VERTICES + 1, tg.num_edges)
-    with pytest.raises(ct.utils.GraphError):
-        ct.bfs(too_big, 0)
+    monkeypatch.setattr(traversal, "MAX_VERTICES", v - 1)
+    got_d, got_p = ct.bfs(tg, 0)
+    want_d, want_p = cg.bfs(cg.from_edgelist(src, dst, num_vertices=v), 0)
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))

@@ -21,15 +21,13 @@ import cugraph_tpu_torch as ct
 from cugraph_tpu.prims.reduce_ops import MAXIMUM as JMAX
 from cugraph_tpu.prims.reduce_ops import MINIMUM as JMIN
 from cugraph_tpu.prims.reduce_ops import PLUS as JPLUS
-from cugraph_tpu_torch.prims import intersection as tint
-from cugraph_tpu_torch.prims import keyed as tkeyed
-from cugraph_tpu_torch.prims import transform_e as tte
-from cugraph_tpu_torch.prims import vertex as tvertex
 from cugraph_tpu_torch.prims.reduce_ops import MAXIMUM, MINIMUM, PLUS
 
-# by module path: cugraph_tpu.prims exports functions named like its modules
-jint, jkeyed, jte, jvertex = (
-    importlib.import_module(f"cugraph_tpu.prims.{m}")
+# by module path: both packages' prims export functions named like their
+# modules (transform_e)
+jint, jkeyed, jte, jvertex, tint, tkeyed, tte, tvertex = (
+    importlib.import_module(f"{pkg}.prims.{m}")
+    for pkg in ("cugraph_tpu", "cugraph_tpu_torch")
     for m in ("intersection", "keyed", "transform_e", "vertex")
 )
 OPS = {"plus": (JPLUS, PLUS), "min": (JMIN, MINIMUM), "max": (JMAX, MAXIMUM)}
