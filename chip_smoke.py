@@ -9,12 +9,13 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
 2. Build: compile the CUDA kernels from csrc/ with nvcc (sm_90a).
 3. Kernels against their plain versions, on a small skewed graph, on an
    adversarial graph for the merge-path tiles (a 2^18-edge hub row, rows
-   ending exactly on tile boundaries, empty first, middle and last rows)
-   and at the main path's shapes: spmv_sum, spmv_minplus, spmm_rows (both
-   modes, and an F other than 128), each sum kernel launched twice and
-   bit-equal. Median times of single calls and, for the sum kernels, of
-   back-to-back calls; bounds, library yardsticks, and each tile plan's
-   one-time cost.
+   ending exactly on tile boundaries, empty first, middle and last rows;
+   spmv_sum and spmv_minplus, weighted, unweighted and BFS-shaped, at both
+   tile sizes) and at the main path's shapes: spmv_sum, spmv_minplus,
+   spmm_rows (both modes, and an F other than 128), each kernel launched
+   twice and bit-equal. Median times of single calls and of back-to-back
+   calls; bounds, library yardsticks, each tile plan's one-time cost, and
+   an SpMV wrapper's host time split into its parts.
 4. Main path at RMAT scale 21, edgefactor 16, scrambled: generate ->
    renumber -> from_edgelist -> pagerank(tol=0, 50 iterations) ->
    bfs(0) -> 2-layer GraphSAGE forward (F = 128 -> 128 -> 64), each held
@@ -45,7 +46,10 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    assemble_chunks on E / 128 rows of 128 f32 in chunks of 16 rows, with
    ~8% of the chunks copied twice. Each held against its plain version and
    float64, timed, bounded, beside torch.cumsum / index_select +
-   index_copy_.
+   index_copy_. The scan also: a second launch bit-equal on both inputs,
+   2^24 ones exact, lengths 1 and a tile - 1, + 0, + 1 and a slice at a
+   4-byte offset against the plain version, and 200 more launches on the
+   U[-1, 1) input, each bit-equal to the first.
 8. Community path on the s21 edge list symmetrized (SCC on the directed
    one): weakly_connected_components, strongly_connected_components,
    core_number, k_core at the largest core, louvain, modularity, the
@@ -106,7 +110,7 @@ TOL_MG_SAGE_LAYER_REL = 1e-5
 # abs error over max |ref|
 TOL_BETWEENNESS_REL = 1e-4
 # cumsum_flat: each entry within this share of the float64 prefix of |x|
-# there (f32 tree sums within 4096-element tiles and across tile offsets)
+# there (f32 tree sums within 4096-element tiles, f64 carries across them)
 TOL_SCAN_REL = 1e-5
 # segment sums as differences of two f32 prefixes: error against float64
 # within this many 2^-24 of the sum of the segment's two float64 prefixes
@@ -299,6 +303,7 @@ def check_spmv_minplus(adj, x, use_weights=True) -> float:
     sync()
     require(torch.equal(torch.isinf(y), torch.isinf(ref)), "spmv_minplus +inf pattern differs")
     require(torch.equal(y, ref), "spmv_minplus is not bit-exact")
+    check_relaunch("spmv_minplus", y, lambda: spmv_minplus(adj, x, use_weights=use_weights))
     return 0.0
 
 
@@ -365,7 +370,7 @@ def small_graph_checks(seed: int) -> None:
             check_spmm_rows(adj, xf, "f32")
             check_spmm_rows(adj, xf, "bf16")
     require(
-        [k.launches - b for k, b in zip(counters, before)] == [4, 4, 16],
+        [k.launches - b for k, b in zip(counters, before)] == [4, 8, 16],
         "every small-graph check must launch its kernel",
     )
     log("small skewed graphs: spmv_sum, spmv_minplus, spmm_rows (f32, bf16; F=128, 37) ok")
@@ -380,9 +385,15 @@ def small_graph_checks(seed: int) -> None:
         g = adversarial_graph(seed + 10 + weighted, weighted, spmm_tiles + spmv_tiles)
         adj = g.csc()
         x = torch.randn(g.num_vertices, generator=gen).to(DEV)
+        frontier = torch.rand(g.num_vertices, generator=gen).to(DEV) < 0.05
+        ids = torch.arange(g.num_vertices, dtype=torch.float32, device=DEV)
+        xb = torch.where(frontier, ids, float("inf"))  # a BFS sweep's x
         for ipt in spmv_ipts:
             with tile_constant(spmv, "SUM_ITEMS_PER_THREAD", ipt):
                 check_spmv_sum(adj, x)
+                check_spmv_minplus(adj, x)
+                check_spmv_minplus(adj, x, use_weights=False)
+                check_spmv_minplus(adj, xb, use_weights=False)
         for f in (128, 37):
             xf = torch.randn(g.num_vertices, f, generator=gen).to(DEV)
             for precision in ("f32", "bf16"):
@@ -390,13 +401,63 @@ def small_graph_checks(seed: int) -> None:
                     with tile_constant(spmm_row, "ITEMS_PER_TILE", k):
                         check_spmm_rows(adj, xf, precision)
     require(
-        [k.launches - b for k, b in zip(counters, before)] == [8, 0, 32],
+        [k.launches - b for k, b in zip(counters, before)] == [8, 24, 32],
         "every adversarial-graph check must launch its kernel",
     )
     log(f"adversarial graphs (V={g.num_vertices}, E={g.num_edges}, hub in-degree "
-        f"{int(g.in_degrees().max())}): spmv_sum (tiles of {list(spmv_tiles)}), "
+        f"{int(g.in_degrees().max())}): spmv_sum, spmv_minplus (weighted, unweighted, BFS "
+        f"x; tiles of {list(spmv_tiles)}), "
         f"spmm_rows (tiles of {list(spmm_tiles)}; f32, bf16; F=128, 37) ok, "
         f"each bit-equal on a second launch")
+
+
+def wrapper_host_split(adj, x, reps: int = 2000) -> dict:
+    """An unweighted spmv_minplus call's host time in µs, by part: each part
+    alone, the median over ``reps`` calls of time.perf_counter around it,
+    the card idle before each (a synchronise outside the timed span). The
+    parts are what the wrapper does in order; "two_empty" is the two
+    allocations it made before y and the carries shared one."""
+    from cugraph_tpu_torch.prims.cuda import build, spmv, spmv_minplus
+    from cugraph_tpu_torch.prims.cuda._launch import check_operands, on_device, ptr, stream_of
+    from cugraph_tpu_torch.prims.cuda._partition import tiles_for
+
+    items = spmv.SUM_THREADS * spmv.SUM_ITEMS_PER_THREAD
+    tile_row, tile_edge = tiles_for(adj, items)
+    n_tiles, v = tile_row.numel() - 1, adj.num_majors
+    buf = torch.empty(v + 2 * n_tiles, device=DEV)
+    fn = build.load("spmv").cgt_spmv_minplus
+
+    def arguments():
+        return (ptr(adj.offsets), ptr(adj.minors), None, ptr(x), ptr(tile_row), ptr(tile_edge),
+                buf.data_ptr() + 4 * v, buf.data_ptr(), n_tiles, spmv.SUM_ITEMS_PER_THREAD,
+                stream_of(x.device))
+
+    args = arguments()
+    parts = {
+        "check_operands": lambda: check_operands("spmv_minplus", adj, x, None),
+        "tiles_for": lambda: tiles_for(adj, items),
+        "one_empty": lambda: torch.empty(v + 2 * n_tiles, device=DEV),
+        "two_empty": lambda: (torch.empty(v, device=DEV), torch.empty(2 * n_tiles, device=DEV)),
+        "on_device": lambda: on_device(x.device),
+        "load_library": lambda: getattr(build.load("spmv"), "cgt_spmv_minplus"),
+        "stream_of": lambda: stream_of(x.device),
+        "arguments": arguments,
+        "ctypes_call": lambda: fn(*args),
+        "wrapper": lambda: spmv_minplus(adj, x, use_weights=False),
+    }
+    out = {}
+    for name, part in parts.items():
+        times = []
+        for _ in range(reps):
+            sync()
+            t = time.perf_counter()
+            part()
+            times.append(time.perf_counter() - t)
+        out[name] = statistics.median(times) * 1e6
+    sync()
+    out["parts_sum"] = sum(out[k] for k in parts if k not in ("two_empty", "wrapper", "stream_of"))
+    log(f"spmv_minplus wrapper host time, µs (median of {reps}, card idle): {json.dumps(out)}")
+    return out
 
 
 def bound(bytes_moved: float, flops: float):
@@ -456,6 +517,7 @@ def weighted_full_shape_kernels(g, seed: int) -> dict:
         ms=median_ms(lambda: spmv_minplus(adj, xd), 20),
         plain_ms=median_ms(lambda: spmv_minplus_reference(adj, xd), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(adj, xd), 20),
     )
     log(f"weighted full-shape kernels (V={v}, E={e}): checks ok")
     return out
@@ -508,6 +570,8 @@ def full_shape_kernels(g, seed: int) -> dict:
         ms=median_ms(lambda: spmv_minplus(adj, xb, use_weights=False), 20),
         plain_ms=median_ms(lambda: spmv_minplus_reference(adj, xb, use_weights=False), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(adj, xb, use_weights=False), 20),
+        host_us=wrapper_host_split(adj, xb),
     )
     del xb
 
@@ -810,6 +874,7 @@ def block_kernels(mesh, mgg, feats) -> dict:
         ms=median_ms(lambda: spmv_sum(blk, x), 20),
         plain_ms=median_ms(lambda: spmv_sum_reference(blk, x), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
+        back_to_back_ms=back_to_back_ms(lambda: spmv_sum(blk, x), 20),
     )
     ids = torch.arange(cols, dtype=torch.float32, device=DEV)
     xb = torch.where(torch.rand(cols, generator=gen, device=DEV) < 0.1, ids, float("inf"))
@@ -818,6 +883,7 @@ def block_kernels(mesh, mgg, feats) -> dict:
         ms=median_ms(lambda: spmv_minplus(blk, xb, use_weights=False), 20),
         plain_ms=median_ms(lambda: spmv_minplus_reference(blk, xb, use_weights=False), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(blk, xb, use_weights=False), 20),
     )
     x_span = mg_prims.gather_src_values(mesh, feats)
     f = x_span.shape[1]
@@ -1174,6 +1240,41 @@ def check_cumsum(x, y, plain, name: str) -> dict:
     return out
 
 
+def scan_edge_cases(inputs, scans, repeats: int = 200) -> dict:
+    """cumsum_flat's single-pass look-back beyond the path's two calls: a
+    second launch bit-equal on each input; 2^24 ones, where every entry is
+    i + 1 exactly; lengths at a tile's edges and a slice 4 bytes into its
+    storage (no 16-byte loads there), each against the plain version; then
+    ``repeats`` launches on the U[-1, 1) input, each bit-equal to the
+    first, so that a race or a deadlock in the look-back shows."""
+    from cugraph_tpu_torch.prims.cuda import cumsum_flat, cumsum_flat_reference, scan
+
+    for name, x in inputs.items():
+        check_relaunch(f"cumsum_flat({name})", scans[name], lambda: cumsum_flat(x))
+    ones = torch.ones(1 << 24, device=DEV)
+    want = torch.arange(1, (1 << 24) + 1, dtype=torch.float32, device=DEV)
+    require(torch.equal(cumsum_flat(ones), want), "cumsum_flat of 2^24 ones is not i + 1")
+    x = inputs["uniform"]
+    out = {}
+    for n in (1, scan.TILE - 1, scan.TILE, scan.TILE + 1):
+        out[f"n={n}"] = check_cumsum(x[:n], cumsum_flat(x[:n]), cumsum_flat_reference(x[:n]),
+                                     f"cumsum_flat(n={n})")
+    tail = x[1:]
+    require(tail.data_ptr() % 16 == 4, "the slice starts 4 bytes into its storage")
+    out["offset_4_bytes"] = check_cumsum(tail, cumsum_flat(tail), cumsum_flat_reference(tail),
+                                         "cumsum_flat(x[1:])")
+    first = scans["uniform"]
+    t = time.perf_counter()
+    same = 0
+    for _ in range(repeats):
+        same += bool(torch.equal(cumsum_flat(x), first))
+    sync()
+    require(same == repeats, f"cumsum_flat: {repeats - same} of {repeats} repeats differ")
+    out["repeats"] = dict(n=repeats, bit_equal=same, seconds=time.perf_counter() - t)
+    log(f"cumsum_flat edge cases: {json.dumps(out)}")
+    return out
+
+
 def seeded_chunk_layout(n_chunks: int, seed: int):
     """chunk_src / chunk_dst shaped like the sorted engine's at s21: every
     binned chunk once in a seeded order, and after some 8% of them a
@@ -1241,6 +1342,7 @@ def scan_assemble_path(g, seed: int) -> dict:
     out = {}
     errs = {name: check_cumsum(x, scans[name], cumsum_flat_reference(x), f"cumsum_flat({name})")
             for name, x in inputs.items()}
+    errs["edge_cases"] = scan_edge_cases(inputs, scans)
     # segment sums: the boundaries exact over a float64 prefix; the kernel's
     # f32 differences each within the rounding of its own two prefixes
     ref = torch.zeros(adj.num_majors, dtype=torch.float64, device=DEV)
@@ -1268,6 +1370,7 @@ def scan_assemble_path(g, seed: int) -> dict:
         plain_ms=median_ms(lambda: cumsum_flat_reference(x), 20),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=median_ms(lambda: torch.cumsum(x, 0), 20),
+        **back_to_back(lambda: cumsum_flat(x), lambda: torch.cumsum(x, 0), 20),
     )
 
     plain = assemble_chunks_reference(binned, chunk_src, chunk_dst, ch, out_rows)
@@ -1295,9 +1398,9 @@ def scan_assemble_path(g, seed: int) -> dict:
         library_ms=median_ms(
             lambda: lib_out.index_copy_(0, cd64, binned.view(-1, width).index_select(0, cs64)), 20),
     )
-    timing = ("ms", "plain_ms", "bound_ms", "library_ms")
+    timing = ("ms", "back_to_back_ms", "plain_ms", "bound_ms", "library_ms")
     log(f"scan/assemble path (E={e}, {n_steps} chunk steps): checks ok, "
-        f"{json.dumps({k: {t: m[t] for t in timing} for k, m in out.items()})}")
+        f"{json.dumps({k: {t: m.get(t) for t in timing} for k, m in out.items()})}")
     return dict(seconds=seconds, launches=launches, kernels=out)
 
 

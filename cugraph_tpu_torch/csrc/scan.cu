@@ -5,38 +5,70 @@
 // The TPU kernel walks (1536, 128) tiles in grid order on one core: a
 // lane prefix and a row prefix by log-step rolls (Mosaic has no cumsum
 // primitive) plus a running total carried in SMEM from one grid step to
-// the next. Blocks of a GPU run in no order and carry nothing, so the
-// carry becomes a second level:
-//   1. tile_scan<false>: each block scans its tile of 4096 elements and
-//      writes only the tile's total;
-//   2. scan_totals: one block turns the totals into exclusive tile
-//      offsets, in place (8192 totals at 33.5M elements, two passes);
-//   3. tile_scan<true>: each block scans its tile again and adds its
-//      offset.
-// Within a block, a thread owns 4 consecutive elements (staged through
-// shared memory so that the loads coalesce), a warp scans the threads'
-// sums with shuffles, and one warp scans the 32 warp totals. Passes 1 and
-// 3 compute a tile's total by the same additions, so tile ends agree with
-// the next tile's offset up to the rounding of the totals' scan.
+// the next. Blocks of a GPU run in no order, so the carry from tile to tile
+// goes through device memory instead: a single pass with decoupled
+// look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", NVIDIA NVR-2016-002).
 //
 // Bound on an H100 SXM: memory. The function must read n * 4 B and write
-// n * 4 B: 268 MB at n = 2^25, ~80 us at 3.35 TB/s. This design reads the
-// input twice (passes 1 and 3), so it cannot beat 1.5x that bound; a
-// single-pass scan with decoupled look-back is later work.
+// n * 4 B: 268 MB at n = 2^25, ~80 us at 3.35 TB/s. This kernel reads x
+// once and writes y once; the status words add 16 B a tile (131 KB at
+// n = 2^25, cleared by a memset). The look-back has a limit of its own:
+// the front of published prefixes advances at most one window of 32
+// predecessors per round trip to the L2, so a window's status must come
+// back in one round trip: no fence and no second read. The rest is
+// occupancy: a thread holds its 32 elements in registers through the
+// look-back, so blocks of 128 threads (64 registers, 8 blocks and 128 KB
+// of loads in flight an SM) keep the memory busier than blocks of 256 or
+// 512; x is read and y written with streaming hints (evict first), since
+// neither is read again.
 //
-// Rounding: sums are IEEE f32, in a tree within each tile and across tile
-// offsets, so the error at element i is a few tens of ulps of the prefix
-// of |x| up to i, not the n ulps of a sequential f32 sum.
+// Design. One block of 128 threads a tile of 4096 elements. Each block
+// takes its tile id from an atomic ticket, not from blockIdx, so every
+// predecessor of a tile has started when its look-back waits on it.
+//   1. Load: thread t owns the 16-byte chunks j * 128 + t (j = 0 .. 7) of
+//      its tile, one float4 each (coalesced); an unaligned x or y, and
+//      the ragged last tile, take guarded scalar loads of the same
+//      elements, so the arithmetic is the same on every path.
+//   2. Tile scan in f32, in a fixed tree: each chunk's 4 elements in
+//      order; for each j, a shuffle scan of the 32 chunk totals of a warp;
+//      then warp 0 scans the 32 warp totals (j-major: j = 0's 4 warps,
+//      then j = 1's, ...). The last of those is the tile's aggregate.
+//   3. Look-back (warp 0): publish the aggregate (A), then read the status
+//      of the 32 tiles before this one at a time, lane l the tile l + 1
+//      back, waiting until each has published something. The nearest
+//      tile with an inclusive prefix (P) ends the walk: its prefix and
+//      the aggregates after it are added in f64 by a shuffle tree, window
+//      by window. Publish this tile's inclusive prefix (P). A tile's
+//      status is two 64-bit words, each valid on its own and stored whole
+//      (no fence, one round trip a window): the aggregate's with a flag
+//      beside the f32 bits, the prefix's as the complement of the f64
+//      bits (0, the cleared state, is then no prefix). Whatever a reader
+//      sees of the two words, it pairs no flag with another value.
+//   4. Write: y = (float)(prefix64 + local), with local the element's f32
+//      prefix within the tile: one rounding from the carry.
+// Carries in f64: tile aggregates are f32, so their f64 sums are exact
+// while the aggregates lie within about 2^16 of each other in magnitude
+// (24 + 16 + 13 bits for 2^13 tiles). The result then does not depend on
+// how far each look-back reached, and a second launch gives the same bits.
+// Error at element i: the tile tree's f32 roundings (3 in the chunk, 5 and
+// 5 in the two shuffle scans, 2 adding the offsets) plus the final one:
+// at most ~16 x 2^-24 of the prefix of |x| up to i.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 4;
-constexpr int kTile = kThreads * kItems;
+constexpr int kChunks = 8;  // float4 chunks a thread
+constexpr int kTile = kThreads * kChunks * 4;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr unsigned long long kAggregateFlag = 1ull << 32;
+
+static_assert(kWarps * kChunks == 32, "warp 0 scans one warp total a lane");
 
 __device__ __forceinline__ float warp_inclusive_scan(float v, int lane) {
 #pragma unroll
@@ -47,122 +79,151 @@ __device__ __forceinline__ float warp_inclusive_scan(float v, int lane) {
   return v;
 }
 
-// Exclusive scan of one value per thread across the block; *total gets
-// the block's sum. warp_sums holds kWarps floats; the block must not
-// touch it between two calls without a __syncthreads (this function ends
-// with one).
-__device__ __forceinline__ float block_exclusive_scan(float v, float* warp_sums,
-                                                      float* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float inc = warp_inclusive_scan(v, lane);
-  float exc = __shfl_up_sync(kFullMask, inc, 1);
-  if (lane == 0) exc = 0.0f;
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    // kWarps == 32: one warp scans the warp totals
-    const float s = warp_inclusive_scan(warp_sums[lane], lane);
-    __syncwarp();
-    warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const float warp_off = warp > 0 ? warp_sums[warp - 1] : 0.0f;
-  *total = warp_sums[kWarps - 1];
-  __syncthreads();
-  return warp_off + exc;
+// Status words, cleared before the launch: the ticket counter (16 B), then
+// two 64-bit words a tile: word[2t] = kAggregateFlag | the f32 bits of its
+// aggregate, word[2t + 1] = ~(the f64 bits of its inclusive prefix).
+struct Status {
+  int* ticket;
+  volatile unsigned long long* word;
+};
+
+__device__ __forceinline__ unsigned long long prefix_word(double v) {
+  const unsigned long long bits = static_cast<unsigned long long>(__double_as_longlong(v));
+  // all-ones bits are a NaN whose word would read as "not yet": store
+  // another quiet NaN instead
+  return bits == ~0ull ? ~0x7ff8000000000000ull : ~bits;
 }
 
-// Stage elements [base, base + kTile) of x into tile (0 past n), with
-// coalesced loads; returns this thread's 4 consecutive elements.
-__device__ __forceinline__ float4 load_tile(const float* __restrict__ x, long long base,
-                                            long long n, float* tile) {
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long idx = base + i * kThreads + threadIdx.x;
-    // plain loads: scan_totals reads the array it later overwrites
-    tile[i * kThreads + threadIdx.x] = idx < n ? x[idx] : 0.0f;
+// Warp 0: publish the tile's aggregate, look back, publish its prefix;
+// returns the sum of the tiles before this one (on every lane).
+__device__ double look_back(const Status& st, int tile, float total, int lane) {
+  if (tile == 0) {
+    if (lane == 0) st.word[1] = prefix_word(static_cast<double>(total));
+    return 0.0;
   }
-  __syncthreads();
-  const float4 v = reinterpret_cast<const float4*>(tile)[threadIdx.x];
-  __syncthreads();
-  return v;
-}
-
-template <bool kWrite>
-__global__ void __launch_bounds__(kThreads)
-tile_scan(const float* __restrict__ x, float* __restrict__ y, float* __restrict__ totals,
-          long long n) {
-  __shared__ __align__(16) float tile[kTile];
-  __shared__ float warp_sums[kWarps];
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  const float4 v = load_tile(x, base, n, tile);
-  const float p0 = v.x, p1 = p0 + v.y, p2 = p1 + v.z, p3 = p2 + v.w;
-  float total;
-  const float exc = block_exclusive_scan(p3, warp_sums, &total);
-  if (!kWrite) {
-    if (threadIdx.x == 0) totals[blockIdx.x] = total;
-    return;
-  }
-  const float off = totals[blockIdx.x] + exc;
-  float4 out;
-  out.x = off + p0;
-  out.y = off + p1;
-  out.z = off + p2;
-  out.w = off + p3;
-  reinterpret_cast<float4*>(tile)[threadIdx.x] = out;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long idx = base + i * kThreads + threadIdx.x;
-    if (idx < n) y[idx] = tile[i * kThreads + threadIdx.x];
-  }
-}
-
-// totals[b] <- sum of totals[0..b) for b in [0, count), one block, in
-// passes of kTile with a running carry.
-__global__ void __launch_bounds__(kThreads) scan_totals(float* __restrict__ totals, int count) {
-  __shared__ __align__(16) float tile[kTile];
-  __shared__ float warp_sums[kWarps];
-  float carry = 0.0f;
-  for (long long base = 0; base < count; base += kTile) {
-    const float4 v = load_tile(totals, base, count, tile);
-    const float p0 = v.x, p1 = p0 + v.y, p2 = p1 + v.z, p3 = p2 + v.w;
-    float pass_total;
-    const float off = carry + block_exclusive_scan(p3, warp_sums, &pass_total);
-    float4 out;  // exclusive: each element gets the sum before it
-    out.x = off;
-    out.y = off + p0;
-    out.z = off + p1;
-    out.w = off + p2;
-    reinterpret_cast<float4*>(tile)[threadIdx.x] = out;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const long long idx = base + i * kThreads + threadIdx.x;
-      if (idx < count) totals[idx] = tile[i * kThreads + threadIdx.x];
+  if (lane == 0) st.word[2 * tile] = kAggregateFlag | __float_as_uint(total);
+  double exclusive = 0.0;
+  for (int end = tile;; end -= 32) {
+    const int p = end - 1 - lane;  // lane 0 is the nearest predecessor
+    unsigned long long agg = 0ull, pre = ~0ull;  // before tile 0: a prefix of 0
+    if (p >= 0) {
+      do {
+        agg = st.word[2 * p];
+        pre = st.word[2 * p + 1];
+      } while ((agg | pre) == 0ull);
     }
-    __syncthreads();
-    carry += pass_total;
+    const unsigned prefixes = __ballot_sync(kFullMask, pre != 0ull);
+    const int near = prefixes ? __ffs(prefixes) - 1 : 32;
+    double v = 0.0;
+    if (lane <= near)
+      v = pre != 0ull ? __longlong_as_double(static_cast<long long>(~pre))
+                      : static_cast<double>(__uint_as_float(static_cast<unsigned>(agg)));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullMask, v, o);
+    exclusive += v;  // lane 0's sum is the window's
+    if (prefixes) break;
+  }
+  exclusive = __shfl_sync(kFullMask, exclusive, 0);
+  if (lane == 0) st.word[2 * tile + 1] = prefix_word(exclusive + static_cast<double>(total));
+  return exclusive;
+}
+
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+scan_kernel(const float* __restrict__ x, float* __restrict__ y, long long n, Status st) {
+  __shared__ int s_tile;
+  __shared__ float s_warp[32];  // warp totals, then their exclusive offsets
+  __shared__ double s_prefix;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_tile = atomicAdd(st.ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long base = static_cast<long long>(tile) * kTile;
+  const bool vec = kAligned && base + kTile <= n;
+
+  float v[kChunks][4];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const long long at = base + 4 * (static_cast<long long>(j) * kThreads + tid);
+    if (vec) {
+      const float4 q = __ldcs(reinterpret_cast<const float4*>(x + at));
+      v[j][0] = q.x;
+      v[j][1] = q.y;
+      v[j][2] = q.z;
+      v[j][3] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[j][k] = at + k < n ? __ldg(x + at + k) : 0.0f;
+    }
+  }
+
+  // each chunk's prefix, then the warp scan of each j's chunk totals
+  float exc[kChunks];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+#pragma unroll
+    for (int k = 1; k < 4; ++k) v[j][k] += v[j][k - 1];
+    const float inc = warp_inclusive_scan(v[j][3], lane);
+    const float up = __shfl_up_sync(kFullMask, inc, 1);
+    exc[j] = lane == 0 ? 0.0f : up;
+    if (lane == 31) s_warp[j * kWarps + warp] = inc;
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    const float inc = warp_inclusive_scan(s_warp[lane], lane);
+    const float total = __shfl_sync(kFullMask, inc, 31);
+    const float up = __shfl_up_sync(kFullMask, inc, 1);
+    const double prefix = look_back(st, tile, total, lane);
+    __syncwarp();
+    s_warp[lane] = lane == 0 ? 0.0f : up;  // the offset of warp total `lane` in the tile
+    if (lane == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+
+  const double prefix = s_prefix;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const float off = s_warp[j * kWarps + warp] + exc[j];
+    float o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      o[k] = static_cast<float>(prefix + static_cast<double>(off + v[j][k]));
+    const long long at = base + 4 * (static_cast<long long>(j) * kThreads + tid);
+    if (vec) {
+      __stcs(reinterpret_cast<float4*>(y + at), make_float4(o[0], o[1], o[2], o[3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (at + k < n) y[at + k] = o[k];
+    }
   }
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. scratch holds ceil(n / 4096) floats
-// (the tile totals, then their offsets). The launches go on the caller's
-// stream and do not synchronise; the return value is cudaGetLastError()
-// after them.
-extern "C" int cgt_cumsum_flat(const float* x, float* y, float* scratch, long long n,
+// C interface, loaded with ctypes. status holds 16 * (tiles + 1) bytes,
+// tiles = ceil(n / 4096), 8-byte aligned: the ticket (16 B), then two
+// 64-bit words a tile. It is cleared here (one memset), then one kernel
+// runs; both go on the caller's stream and do not synchronise. The return
+// value is the first CUDA error.
+extern "C" int cgt_cumsum_flat(const float* x, float* y, void* status, long long n,
                                void* stream) {
   if (n > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const long long tiles = (n + kTile - 1) / kTile;
     if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    char* words = static_cast<char*>(status);
+    Status st;
+    st.ticket = reinterpret_cast<int*>(words);
+    st.word = reinterpret_cast<unsigned long long*>(words + 16);
+    const cudaError_t rc = cudaMemsetAsync(words, 0, 16 * (tiles + 1), s);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
     const unsigned grid = static_cast<unsigned>(tiles);
-    tile_scan<false><<<grid, kThreads, 0, s>>>(x, y, scratch, n);
-    scan_totals<<<1, kThreads, 0, s>>>(scratch, static_cast<int>(tiles));
-    tile_scan<true><<<grid, kThreads, 0, s>>>(x, y, scratch, n);
+    const bool aligned =
+        ((reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(y)) & 15) == 0;
+    if (aligned) scan_kernel<true><<<grid, kThreads, 0, s>>>(x, y, n, st);
+    else scan_kernel<false><<<grid, kThreads, 0, s>>>(x, y, n, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

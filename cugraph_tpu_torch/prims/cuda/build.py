@@ -34,10 +34,9 @@ _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "spmv": {
         # offsets, minors, weights, x, tile_row, tile_edge, carry, y, tiles,
-        # items_per_thread, stream
+        # items_per_thread, stream (both)
         "cgt_spmv_sum": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
-        # offsets, minors, weights, x, y, rows, stream
-        "cgt_spmv_minplus": [_VP, _VP, _VP, _VP, _VP, _INT, _VP],
+        "cgt_spmv_minplus": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
     },
     "spmm_row": {
         # offsets, minors, weights, x, x_bf16, x elements, tile_row,
@@ -46,7 +45,7 @@ SIGNATURES = {
                           _INT, _INT, _INT, _VP],
     },
     "scan": {
-        # x, y, scratch, n, stream
+        # x, y, status words, n, stream
         "cgt_cumsum_flat": [_VP, _VP, _VP, _I64, _VP],
     },
     "assemble": {

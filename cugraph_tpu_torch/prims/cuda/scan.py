@@ -1,5 +1,5 @@
-"""cumsum_flat: the two-level prefix-sum kernel (csrc/scan.cu) and its
-plain version, and segment_sums_from_cumsum.
+"""cumsum_flat: the single-pass prefix-sum kernel (csrc/scan.cu, decoupled
+look-back) and its plain version, and segment_sums_from_cumsum.
 
 Counterpart of ``cugraph_tpu/prims/pallas/scan.py`` (``cumsum_flat`` 59,
 ``segment_sums_from_cumsum`` 89). No algorithm path of the JAX package
@@ -16,7 +16,9 @@ import torch
 from . import build
 from ._launch import on_device, raise_on_error, stream_of
 
-TILE = 4096  # elements per CUDA block (csrc/scan.cu kTile)
+THREADS = 128  # threads a block (csrc/scan.cu kThreads)
+ITEMS_PER_THREAD = 32  # eight float4 chunks a thread (csrc/scan.cu kChunks)
+TILE = THREADS * ITEMS_PER_THREAD  # elements a tile (csrc/scan.cu kTile)
 
 
 def _flat_f32(x: torch.Tensor) -> torch.Tensor:
@@ -32,22 +34,25 @@ def cumsum_flat_reference(x: torch.Tensor) -> torch.Tensor:
 
 def cumsum_flat(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of a flat array cast to f32, any length (0
-    included). f32 sums in a tree within 4096-element tiles and across
-    tile offsets, so element i is within a few tens of ulps of the prefix
-    of |x| up to i."""
+    included). One pass: f32 sums in a fixed tree within 4096-element
+    tiles, carries from tile to tile in f64, each entry rounded once from
+    them; element i is within ~16 x 2^-24 of the prefix of |x| up to i."""
     x = _flat_f32(x)
     if x.device.type == "cpu":
         return cumsum_flat_reference(x)
     if x.device.type != "cuda":
         raise RuntimeError(f"cumsum_flat: x must be a CUDA or CPU tensor, got {x.device}")
     n = x.numel()
-    y = torch.empty_like(x)
     if n == 0:
-        return y
-    scratch = torch.empty(-(-n // TILE), dtype=torch.float32, device=x.device)
+        return torch.empty_like(x)
+    # one allocation: the status words (a 16-byte ticket, then 16 bytes a
+    # tile; the kernel's call clears them), then y, 16-byte aligned
+    words = 4 * (-(-n // TILE) + 1)
+    buf = torch.empty(words + n, dtype=torch.float32, device=x.device)
+    y = buf[words:]
     with on_device(x.device):
         rc = build.load("scan").cgt_cumsum_flat(
-            x.data_ptr(), y.data_ptr(), scratch.data_ptr(), n, stream_of(x.device)
+            x.data_ptr(), y.data_ptr(), buf.data_ptr(), n, stream_of(x.device)
         )
     raise_on_error("cumsum_flat", rc)
     cumsum_flat.launches += 1

@@ -10,10 +10,11 @@ the roles of s and d swap; w is the edge weight when
 tensor launches the kernel (and counts the launch in ``launches``); a CPU
 tensor takes the plain version. There is no fallback from one to the other.
 
-``spmv_sum`` cuts the adjacency into merge-path tiles of
+Both cut the adjacency into merge-path tiles of
 ``SUM_THREADS * SUM_ITEMS_PER_THREAD`` rows and edges, one block each
-(``_partition.py``); the plan is computed on the card at the first call
-and kept on the adjacency.
+(``_partition.py``), and run one kernel body templated on the reduction;
+the plan is computed on the card at the first call of either and kept on
+the adjacency, so the other finds it there.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from . import build
 from ._launch import check_operands, on_device, ptr, raise_on_error, stream_of
 from ._partition import tiles_for
 
-SUM_THREADS = 256  # threads a block of the spmv_sum kernel (csrc/spmv.cu)
+SUM_THREADS = 256  # threads a block of the spmv kernels (csrc/spmv.cu)
 # odd, so the threads' shared-memory runs fall in distinct banks; the
 # fastest of 3-15 at RMAT scale 21 on an H100 (PERF.md §6)
 SUM_ITEMS_PER_THREAD = 7
@@ -59,12 +60,26 @@ def spmv_minplus_reference(
     return y.scatter_reduce_(0, adj.majors.to(torch.int64), vals, "amin")
 
 
-def _operands(kernel: str, adj: CompressedAdj, x: torch.Tensor, use_weights: bool):
+def _launch(kernel: str, adj: CompressedAdj, x: torch.Tensor, use_weights: bool) -> torch.Tensor:
+    """Check the operands, fetch the plan and launch ``cgt_<kernel>``; y
+    and the (tiles, 2) carries are views of one allocation."""
     w = _weights(adj, use_weights)
     check_operands(kernel, adj, x, w)
     if x.dim() != 1:
         raise ValueError(f"{kernel}: x must be 1-D, got shape {tuple(x.shape)}")
-    return w, torch.empty(adj.num_majors, dtype=torch.float32, device=x.device)
+    ipt = SUM_ITEMS_PER_THREAD
+    tile_row, tile_edge = tiles_for(adj, SUM_THREADS * ipt)
+    n_tiles = tile_row.numel() - 1
+    v = adj.num_majors
+    buf = torch.empty(v + 2 * n_tiles, dtype=torch.float32, device=x.device)
+    y = buf[:v]
+    with on_device(x.device):
+        rc = getattr(build.load("spmv"), f"cgt_{kernel}")(
+            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(tile_row), ptr(tile_edge),
+            buf.data_ptr() + 4 * v, ptr(y), n_tiles, ipt, stream_of(x.device),
+        )
+    raise_on_error(kernel, rc)
+    return y
 
 
 def spmv_sum(
@@ -75,17 +90,7 @@ def spmv_sum(
     SpMV (``spmv.py:194``, ``pull_spmv`` 224 / 260)."""
     if x.device.type == "cpu":
         return spmv_sum_reference(adj, x, use_weights=use_weights)
-    w, y = _operands("spmv_sum", adj, x, use_weights)
-    ipt = SUM_ITEMS_PER_THREAD
-    tile_row, tile_edge = tiles_for(adj, SUM_THREADS * ipt)
-    n_tiles = tile_row.numel() - 1
-    carry = torch.empty(2 * n_tiles, dtype=torch.float32, device=x.device)
-    with on_device(x.device):
-        rc = build.load("spmv").cgt_spmv_sum(
-            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(tile_row), ptr(tile_edge),
-            ptr(carry), ptr(y), n_tiles, ipt, stream_of(x.device),
-        )
-    raise_on_error("spmv_sum", rc)
+    y = _launch("spmv_sum", adj, x, use_weights)
     spmv_sum.launches += 1
     return y
 
@@ -93,16 +98,12 @@ def spmv_sum(
 def spmv_minplus(
     adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True
 ) -> torch.Tensor:
-    """y[d] = min over in-edges s->d of x[s] + w (+inf if none), f32, exact."""
+    """y[d] = min over in-edges s->d of x[s] + w (+inf if none), f32, exact.
+    Carries the TPU's sorted min reduce (``spmv2.py:1675``) and keyed min
+    (``spmv3.py:944``)."""
     if x.device.type == "cpu":
         return spmv_minplus_reference(adj, x, use_weights=use_weights)
-    w, y = _operands("spmv_minplus", adj, x, use_weights)
-    with on_device(x.device):
-        rc = build.load("spmv").cgt_spmv_minplus(
-            ptr(adj.offsets), ptr(adj.minors), ptr(w), ptr(x), ptr(y),
-            adj.num_majors, stream_of(x.device),
-        )
-    raise_on_error("spmv_minplus", rc)
+    y = _launch("spmv_minplus", adj, x, use_weights)
     spmv_minplus.launches += 1
     return y
 

@@ -1,4 +1,5 @@
-"""The merge-path tile plan of spmv_sum and spmm_rows (prims/cuda/_partition.py).
+"""The merge-path tile plan of spmv_sum, spmv_minplus and spmm_rows
+(prims/cuda/_partition.py).
 
 The plan is plain torch and runs here; the kernels that read it run only
 on a card (chip_smoke.py holds them against their plain versions there).
@@ -9,8 +10,10 @@ each tile holds items_per_tile items (the last one at most that), a hub
 row spans about deg / items_per_tile tiles, and the diagonals do not wrap
 when V + E passes 2^31. A numpy model of the kernels' carry rules (which
 row goes straight to the output, which to carry slot 0 or 1, which tile
-boundary sums a cut row in tile order) reproduces the float64 row sums
-and writes every row exactly once.
+boundary combines a cut row's carries in tile order), for the sum and for
+the min with its +inf identity, reproduces the float64 row sums and row
+minima and writes every row exactly once; a row with no edges comes out
+as the identity.
 """
 
 import numpy as np
@@ -113,37 +116,44 @@ def test_plan_is_cached_on_the_adjacency():
         _partition.merge_path_tiles(offsets, e, 0)
 
 
-def _kernel_model(offsets, vals, k):
+# the kernels' reductions (csrc/spmv.cu SumOp, MinPlusOp): identity and
+# combine; np.minimum, like fminf on numbers, and it lets an unwritten
+# (NaN) carry show
+OPS = {"sum": (0.0, np.add), "min": (np.inf, np.minimum)}
+
+
+def _kernel_model(offsets, vals, k, op="sum"):
     """The kernels' carry rules, one tile at a time, in float64: returns the
     output and how many times each row was written."""
+    ident, combine = OPS[op]
     off = offsets.numpy().astype(np.int64)
     v, e = len(off) - 1, int(off[-1])
     rows, edges = (t.numpy().astype(np.int64) for t in
                    _partition.merge_path_tiles(offsets, e, k))
     n_tiles = len(rows) - 1
-    y = np.zeros(v)
+    y = np.full(v, np.nan)
     writes = np.zeros(v, np.int64)
     carry = np.full((n_tiles, 2), np.nan)
     for t in range(n_tiles):
         r0, r1, e0, e1 = rows[t], rows[t + 1], edges[t], edges[t + 1]
         head = off[r0] < e0  # the tile enters row r0 partway
-        r, acc, has = r0, 0.0, False
+        r, acc, has = r0, ident, False
         for j in range(e0, e1):
             while j >= off[r + 1]:  # rows that end before edge j
                 if r == r0 and head:
                     carry[t, 0] = acc
                 else:
-                    y[r] += acc
+                    y[r] = acc
                     writes[r] += 1
-                r, acc, has = r + 1, 0.0, False
-            acc, has = acc + vals[j], True
+                r, acc, has = r + 1, ident, False
+            acc, has = combine(acc, vals[j]), True
         while r < r1:
             if r == r0 and head:
                 carry[t, 0] = acc
             else:
-                y[r] += acc
+                y[r] = acc
                 writes[r] += 1
-            r, acc, has = r + 1, 0.0, False
+            r, acc, has = r + 1, ident, False
         if has:
             carry[t, 0 if (r == r0 and head) else 1] = acc
     for t in range(1, n_tiles):  # the fix-up: one owner per cut row
@@ -153,21 +163,48 @@ def _kernel_model(offsets, vals, k):
         last = (off[r + 1] + r) // k
         acc = carry[t - 1, 1]
         for tt in range(t, last + 1):
-            acc += carry[tt, 0]
-        y[r] += acc
+            acc = combine(acc, carry[tt, 0])
+        y[r] = acc
         writes[r] += 1
     return y, writes
 
 
+def _row_reduce(offsets, vals, op):
+    ident, combine = OPS[op]
+    bounds = zip(offsets[:-1].tolist(), offsets[1:].tolist())
+    return np.array([combine.reduce(vals[a:b]) if b > a else ident for a, b in bounds])
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
 @pytest.mark.parametrize("seed,k", PLANS + [(7, 2), (8, 18)])
-def test_carry_rules_sum_every_row_once(seed, k):
+def test_carry_rules_sum_every_row_once(seed, k, op):
     deg = _adversarial_degrees(seed, hub=700)
     offsets = _offsets(deg)
     vals = np.random.default_rng(seed).normal(size=int(deg.sum()))
-    y, writes = _kernel_model(offsets, vals, k)
+    y, writes = _kernel_model(offsets, vals, k, op)
     assert (writes == 1).all()
-    want = np.array([vals[a:b].sum() for a, b in zip(offsets[:-1].tolist(), offsets[1:].tolist())])
-    np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
+    want = _row_reduce(offsets, vals, op)
+    if op == "min":  # exact: a min rounds nothing
+        np.testing.assert_array_equal(y, want)
+    else:
+        np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 64, 1792])
+def test_min_rows_without_edges_are_inf(k):
+    """Empty rows first, in the middle (a run of them, and single ones
+    between a hub's tiles and short rows) and last come out +inf, written
+    once; every other row is its exact minimum."""
+    deg = _adversarial_degrees(9, hub=3000)
+    deg[8] = deg[10] = 0  # single empty rows right after the hub
+    offsets = _offsets(deg)
+    vals = np.random.default_rng(9).normal(size=int(deg.sum())) * 100
+    y, writes = _kernel_model(offsets, vals, k, "min")
+    assert (writes == 1).all()
+    empty = deg == 0
+    assert empty[[0, 8, 10, 150, len(deg) - 1]].all()
+    assert np.isposinf(y[empty]).all() and np.isfinite(y[~empty]).all()
+    np.testing.assert_array_equal(y, _row_reduce(offsets, vals, "min"))
 
 
 def test_rows_ending_on_tile_boundaries():
@@ -181,3 +218,6 @@ def test_rows_ending_on_tile_boundaries():
         y, writes = _kernel_model(offsets, vals, k)
         assert (writes == 1).all()
         np.testing.assert_allclose(y, vals.reshape(50, 3).sum(1))
+        y, writes = _kernel_model(offsets, -vals, k, "min")
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(y, -vals.reshape(50, 3)[:, 2])
