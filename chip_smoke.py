@@ -49,8 +49,27 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    index_copy_. The scan also: a second launch bit-equal on both inputs,
    2^24 ones exact, lengths 1 and a tile - 1, + 0, + 1 and a slice at a
    4-byte offset against the plain version, and 200 more launches on the
-   U[-1, 1) input, each bit-equal to the first.
-8. Community path on the s21 edge list symmetrized (SCC on the directed
+   U[-1, 1) input, each bit-equal to the first. assemble_chunks also:
+   int64 ids, bad ids in both widths, 200 more calls each bit-equal to
+   the first, back-to-back times and its time split into parts
+   (assemble_split: host µs of each part, device µs of each launch).
+8. Sampling and link prediction: uniform_neighbor_sample on the weighted
+   s21 graph (the main path's edges) from 1,024 seeded starts with
+   fanouts [25, 10], without and with replacement, and [25, 10, -1];
+   random_walks (uniform and biased) and node2vec (p = 1, q = 0.5) of
+   2^14 walkers, length 80;
+   jaccard, sorensen, overlap and cosine over the default pairs of the
+   symmetrized graph at SMALL_SCALE, unweighted and weighted;
+   all_pairs_similarity at scale 10; mg_rmat_edgelist ->
+   rmat_chunk_source -> distribute_edgelist_chunks on a 1 x 1 NCCL mesh
+   at SMALL_SCALE. Each phase with its launch counters set to 0 just
+   before and read just after, and an independent check: sampled edges
+   and walk steps are edges with their weights, slots per vertex and per
+   hop follow from the degrees, a vertex of degree <= K (or fanout -1)
+   takes exactly its edges; the coefficients against float64 numpy on seeded pairs and on
+   every pair of the highest-degree vertex; the two-hop pairs against
+   scipy; the rank's in_block against a numpy CSC of the shards.
+9. Community path on the s21 edge list symmetrized (SCC on the directed
    one): weakly_connected_components, strongly_connected_components,
    core_number, k_core at the largest core, louvain, modularity, the
    three analyze_clustering_* functions, leiden and ego_graph(0, 1);
@@ -131,8 +150,28 @@ ASSEMBLE_PART_ROWS = 2048
 ASSEMBLE_PART_FILL = 120
 KTRUSS_K = 16
 # RMAT scale of triangle count, k-truss and ECG (at s21 their wedge probes
-# and ECG's 17 Louvain runs would dominate the run)
+# and ECG's 17 Louvain runs would dominate the run), and of link prediction
 SMALL_SCALE = 18
+# neighbor sampling: seeded start vertices and GraphSAGE's two-layer
+# fanouts (Hamilton et al., 2017)
+SAMPLE_STARTS = 1024
+SAMPLE_FANOUTS = (25, 10)
+# and a third hop over the whole neighbourhood (fanout -1), whose ~4e4
+# frontier vertices hold hubs of ~1e5 edges
+SAMPLE_ALL_FANOUTS = (25, 10, -1)
+# walks: 2^14 walkers of node2vec's default length 80 (Grover & Leskovec,
+# 2016), node2vec with p = 1, q = 0.5
+WALKERS = 1 << 14
+WALK_LENGTH = 80
+NODE2VEC_P, NODE2VEC_Q = 1.0, 0.5
+# link prediction against float64 numpy on this many seeded pairs, plus
+# every pair that touches the vertex of highest degree; unweighted: the
+# same exact counts under one f32 division, so within 1e-6 absolute;
+# weighted: float32 vertex weights summed in another order, within 1e-5
+# of the coefficient
+SIMILARITY_PAIRS = 4096
+TOL_SIMILARITY_ABS = 1e-6
+TOL_SIMILARITY_W_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -797,31 +836,39 @@ def gradient_path(g, feats, seed: int) -> dict:
                 max_abs_err=abs_err, rel_err=rel, autograd_rel_err=auto_rel)
 
 
+def profiled(fn, reps: int = 1):
+    """``fn`` run ``reps`` times under torch.profiler: the wall seconds of
+    the runs, and {kernel, memset or copy: [launches, device µs]} over them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        wall = time.perf_counter() - t
+    return wall, {e.key: [e.count, e.self_device_time_total]
+                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def warm_breakdown(phases) -> dict:
     """Each algorithm phase once more, after the counted run: its wall
     seconds warm, then its device time by kernel under torch.profiler.
     The idle share is 1 - (device busy) / (profiled wall)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     for name, fn in phases.items():
         t = time.perf_counter()
         fn()
         sync()
         warm = time.perf_counter() - t
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            sync()
-            profiled = time.perf_counter() - t
-        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in device) / 1e6
-        top = sorted(device, key=lambda e: -e.self_device_time_total)[:5]
+        wall, device = profiled(fn)
+        busy = sum(us for _, us in device.values()) / 1e6
+        top = sorted(device.items(), key=lambda kv: -kv[1][1])[:5]
         out[name] = dict(
-            warm_s=warm, profiled_s=profiled, device_busy_s=busy,
-            idle_share=1 - busy / profiled if busy else None,
-            top_kernels_ms=[[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
+            warm_s=warm, profiled_s=wall, device_busy_s=busy,
+            idle_share=1 - busy / wall if busy else None,
+            top_kernels_ms=[[key[:80], count, us / 1e3] for key, (count, us) in top],
         )
         log(f"warm {name}: {json.dumps(out[name])}")
     return out
@@ -1275,6 +1322,55 @@ def scan_edge_cases(inputs, scans, repeats: int = 200) -> dict:
     return out
 
 
+def assemble_split(binned, chunk_src, chunk_dst, ch: int, out_rows: int, reps: int = 2000) -> dict:
+    """assemble_chunks' time by part at one shape. Host µs: each part alone,
+    the median over ``reps`` runs of time.perf_counter around it, the card
+    idle before each (a synchronise outside the timed span): the argument
+    checks, the output's allocation, the C call alone (a memset and two
+    launches, then a wait for the index pass) and the whole wrapper. A
+    part's time ends when it returns, the card maybe still copying.
+    Device µs per launch from torch.profiler; the whole call as
+    ``median_ms`` and ``back_to_back_ms`` time it."""
+    from cugraph_tpu_torch.prims.cuda import assemble, assemble_chunks, build
+
+    out_chunks, in_chunks = out_rows // ch, binned.shape[0] // ch
+    width, lanes = ch * binned.shape[1], binned.shape[1]
+    fn = build.load("assemble").cgt_assemble_chunks
+    buf = torch.empty(out_rows * lanes + out_chunks, device=DEV)
+    flag, event = assemble._flag_and_event(DEV)
+    args = (binned.data_ptr(), chunk_src.data_ptr(), chunk_dst.data_ptr(),
+            buf.data_ptr() + 4 * out_rows * lanes, buf.data_ptr(), flag.data_ptr(), event,
+            chunk_src.numel(), in_chunks, out_chunks, width // 4, 0,
+            torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        return assemble_chunks(binned, chunk_src, chunk_dst, ch, out_rows)
+
+    parts = {
+        "check": lambda: assemble._check(binned, chunk_src, chunk_dst, ch, out_rows),
+        "one_empty": lambda: torch.empty(out_rows * lanes + out_chunks, device=DEV),
+        "ctypes_call": lambda: fn(*args),
+        "wrapper": call,
+    }
+    host = {}
+    for name, part in parts.items():
+        times = []
+        for _ in range(reps):
+            sync()
+            t = time.perf_counter()
+            part()
+            times.append(time.perf_counter() - t)
+        host[name] = statistics.median(times) * 1e6
+    sync()
+    call()
+    _, device = profiled(call, 50)
+    out = dict(host_us=host,
+               device_us={k[:60]: [count / 50, us / 50] for k, (count, us) in device.items()},
+               median_ms=median_ms(call, 200), back_to_back_ms=back_to_back_ms(call, 50))
+    log(f"assemble_chunks split: {json.dumps(out)}")
+    return out
+
+
 def seeded_chunk_layout(n_chunks: int, seed: int):
     """chunk_src / chunk_dst shaped like the sorted engine's at s21: every
     binned chunk once in a seeded order, and after some 8% of them a
@@ -1330,11 +1426,13 @@ def scan_assemble_path(g, seed: int) -> dict:
     log(f"scan/assemble path launches: {json.dumps(launches)}")
     require(launches == {"cumsum_flat": 2, "assemble_chunks": 1},
             "the scan/assemble entry points must launch their kernels")
-    # a chunk id outside its array raises on the card, as on the CPU
-    for bad_src, bad_dst in ((rows // ch, 0), (0, out_rows // ch)):
+    # a chunk id outside its array raises on the card, as on the CPU; an
+    # int64 id past 2^31 is not cut into the arrays
+    for bad_src, bad_dst, dtype in ((rows // ch, 0, torch.int32), (0, out_rows // ch, torch.int32),
+                                    (-1, 0, torch.int64), (2**32, 0, torch.int64)):
         try:
-            assemble_chunks(binned, chunk_src.new_tensor([bad_src]), chunk_dst.new_tensor([bad_dst]),
-                            ch, out_rows)
+            assemble_chunks(binned, torch.tensor([bad_src], dtype=dtype, device=DEV),
+                            torch.tensor([bad_dst], dtype=dtype, device=DEV), ch, out_rows)
         except ValueError:
             continue
         raise RuntimeError("check failed: assemble_chunks took a chunk id outside its array")
@@ -1376,6 +1474,13 @@ def scan_assemble_path(g, seed: int) -> dict:
     plain = assemble_chunks_reference(binned, chunk_src, chunk_dst, ch, out_rows)
     sync()
     require(torch.equal(assembled, plain), "assemble_chunks is not bit-equal to its plain version")
+    require(torch.equal(assemble_chunks(binned, chunk_src.long(), chunk_dst.long(), ch, out_rows),
+                        plain), "assemble_chunks on int64 ids differs")
+    t = time.perf_counter()
+    same = sum(bool(torch.equal(assemble_chunks(binned, chunk_src, chunk_dst, ch, out_rows), assembled))
+               for _ in range(200))
+    require(same == 200, f"assemble_chunks: {200 - same} of 200 repeats differ from the first")
+    repeats = dict(n=200, bit_equal=same, seconds=time.perf_counter() - t)
     covered = torch.zeros(out_rows // ch, dtype=torch.bool, device=DEV)
     covered[chunk_dst.long()] = True
     require(not bool(assembled.view(out_rows // ch, -1)[~covered].any()),
@@ -1397,11 +1502,361 @@ def scan_assemble_path(g, seed: int) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=median_ms(
             lambda: lib_out.index_copy_(0, cd64, binned.view(-1, width).index_select(0, cs64)), 20),
+        **back_to_back(
+            lambda: assemble_chunks(binned, chunk_src, chunk_dst, ch, out_rows),
+            lambda: lib_out.index_copy_(0, cd64, binned.view(-1, width).index_select(0, cs64)), 20),
+        repeats=repeats,
+        split=assemble_split(binned, chunk_src, chunk_dst, ch, out_rows),
     )
     timing = ("ms", "back_to_back_ms", "plain_ms", "bound_ms", "library_ms")
     log(f"scan/assemble path (E={e}, {n_steps} chunk steps): checks ok, "
         f"{json.dumps({k: {t: m.get(t) for t in timing} for k, m in out.items()})}")
     return dict(seconds=seconds, launches=launches, kernels=out)
+
+
+# ------------------------------------------------- sampling path
+
+
+def sorted_edge_keys(adj):
+    """src * V + dst of every CSR edge, int64, sorted (the CSR is sorted by
+    (src, dst))."""
+    return adj.majors.long() * adj.num_minors + adj.minors.long()
+
+
+def edge_multiplicity(keys, src, dst, width):
+    """How many parallel edges (src, dst) the sorted keys hold, and the
+    first of them."""
+    probe = src.long() * width + dst.long()
+    lo = torch.searchsorted(keys, probe)
+    return torch.searchsorted(keys, probe, right=True) - lo, lo
+
+
+def weights_match(adj, lo, mult, w) -> bool:
+    """Each w is the weight of one of its parallel edges lo .. lo + mult."""
+    match = torch.zeros_like(w, dtype=torch.bool)
+    for k in range(int(mult.max()) if mult.numel() else 0):
+        match |= (k < mult) & (adj.weights[(lo + k).clamp(max=adj.num_edges - 1)] == w)
+    return bool(match.all())
+
+
+def check_neighbor_sample(g, starts, per_hop, compressed, with_replacement) -> dict:
+    """Every sampled edge is an edge; without replacement no row takes an
+    (src, dst) more often than the CSR holds it; a row of degree <= K takes
+    exactly its edges, slot i edge i; each hop's count follows from the
+    frontier's degrees; the compressed dict is the valid slots in order."""
+    adj = g.csr()
+    keys = sorted_edge_keys(adj)
+    deg = adj.degrees().long()
+    frontier = starts.long()
+    counts = []
+    for hop, (srcs, dsts, w, valid) in enumerate(per_hop):
+        n, k = dsts.shape
+        require(torch.equal(srcs[valid].long(), frontier[:, None].expand(n, k)[valid]),
+                f"hop {hop}: a slot's source is not its frontier vertex")
+        mult, lo = edge_multiplicity(keys, srcs[valid], dsts[valid], adj.num_minors)
+        require(bool((mult > 0).all()), f"hop {hop}: a sampled edge is not in the graph")
+        require(weights_match(adj, lo, mult, w[valid]), f"hop {hop}: sampled weights are not the edges'")
+        fdeg = torch.where(frontier >= 0, deg[frontier.clamp(min=0)], 0)
+        want = torch.where(fdeg > 0, k, 0) if with_replacement else fdeg.clamp(max=k)
+        require(torch.equal(valid.sum(1), want), f"hop {hop}: slots per vertex != min(deg, K)")
+        if not with_replacement:
+            # no (row, dst) more often than the row's parallel edges to dst
+            row = torch.arange(n, device=DEV)[:, None].expand(n, k)[valid]
+            pair, times = torch.unique(row * adj.num_minors + dsts[valid].long(), return_counts=True)
+            m, _ = edge_multiplicity(keys, frontier[pair // adj.num_minors],
+                                     pair % adj.num_minors, adj.num_minors)
+            require(bool((times <= m).all()), f"hop {hop}: a slot repeats an edge")
+            small = (fdeg > 0) & (fdeg <= k)
+            slot = torch.arange(k, device=DEV)[None, :]
+            eidx = adj.offsets[frontier.clamp(min=0)].long()[:, None] + slot
+            take = small[:, None] & (slot < fdeg[:, None])
+            require(torch.equal(dsts[take], adj.minors[eidx[take]]),
+                    f"hop {hop}: a vertex of degree <= K did not take exactly its edges")
+        counts.append(int(valid.sum()))
+        frontier = torch.where(valid, dsts, -1).reshape(-1).long()
+    hop = compressed["hop"]
+    require([int((hop == h).sum()) for h in range(len(per_hop))] == counts,
+            "compressed hop counts differ from the valid slots")
+    for key, i in (("sources", 0), ("destinations", 1), ("weights", 2)):
+        want = torch.cat([p[i][p[3]] for p in per_hop])
+        require(torch.equal(compressed[key], want), f"compressed {key} are not the valid slots")
+    return dict(edges_by_hop=counts)
+
+
+def check_all_neighbors(g, starts, got, fanouts) -> dict:
+    """Compressed fanouts ending in -1: each hop of fanout K takes min(deg,
+    K) edges of each vertex of its frontier (the starts, then the hop
+    before's destinations); the last hop is, for each destination of the
+    hop before in order, exactly its out-edges: as many slots as its
+    degree, each an edge with its weight, none more often than the CSR
+    holds it."""
+    adj = g.csr()
+    keys = sorted_edge_keys(adj)
+    deg = adj.degrees().long()
+    hop, src, dst, w = got["hop"], got["sources"], got["destinations"], got["weights"]
+    last = len(fanouts) - 1
+    require(bool((hop[1:] >= hop[:-1]).all()) and int(hop.max()) == last, "hops out of order")
+    mult, lo = edge_multiplicity(keys, src, dst, adj.num_minors)
+    require(bool((mult > 0).all()), "fanout -1: a sampled edge is not in the graph")
+    require(weights_match(adj, lo, mult, w), "fanout -1: sampled weights are not the edges'")
+    frontier, counts = starts.long(), []
+    for h, k in enumerate(fanouts[:-1]):
+        counts.append(int((hop == h).sum()))
+        require(counts[-1] == int(deg[frontier].clamp(max=k).sum()),
+                f"hop {h}: slots != min(deg, K) over the frontier")
+        frontier = dst[hop == h].long()
+    n_last = deg[frontier]
+    in_last = hop == last
+    require(torch.equal(src[in_last].long(), frontier.repeat_interleave(n_last)),
+            "fanout -1: the hop is not each frontier vertex's row in frontier order")
+    seg = torch.arange(frontier.numel(), device=DEV).repeat_interleave(n_last)
+    pair, times = torch.unique(seg * adj.num_minors + dst[in_last].long(), return_counts=True)
+    m, _ = edge_multiplicity(keys, frontier[pair // adj.num_minors], pair % adj.num_minors,
+                             adj.num_minors)
+    require(bool((times <= m).all()), "fanout -1: a row repeats an edge")
+    counts.append(int(n_last.sum()))
+    return dict(edges_by_hop=counts, frontier=frontier.numel(),
+                frontier_max_degree=int(n_last.max()))
+
+
+def check_walks(g, starts, walks, ws) -> dict:
+    """Every step is an edge whose weight the step returns, or -1 after a
+    sink, and stays -1; weights are 0 after it."""
+    adj = g.csr()
+    keys = sorted_edge_keys(adj)
+    n, length = ws.shape
+    require(walks.shape == (n, length + 1) and torch.equal(walks[:, 0], starts),
+            f"walks shape {tuple(walks.shape)} or starts")
+    a, b = walks[:, :-1], walks[:, 1:]
+    dead = b < 0
+    require(bool((dead[:, 1:] >= dead[:, :-1]).all()), "a walk came back after -1")
+    require(not bool(ws[dead].any()), "a weight after a walk's end is not 0")
+    live = ~dead
+    mult, lo = edge_multiplicity(keys, a[live], b[live], adj.num_minors)
+    require(bool((mult > 0).all()), "a walk step is not an edge")
+    require(weights_match(adj, lo, mult, ws[live]), "a walk's edge weight is not the CSR's")
+    return dict(steps=int(live.sum()), ended=int(dead[:, -1].sum()),
+                mean_length=float(live.sum(1).double().mean()))
+
+
+def similarity_reference(g, v1, v2, weighted: bool):
+    """Jaccard, Sorensen, overlap and cosine in float64 numpy for the pairs
+    (host arrays): np.intersect1d on each pair's neighbour lists, and for
+    every pair of one vertex a membership mask (the hub's pairs); weighted:
+    a vertex weighs its edges' sum, a set the sum of its members'."""
+    import numpy as np
+
+    adj = g.csr()
+    off = adj.offsets.cpu().numpy().astype(np.int64)
+    nbr = adj.minors.cpu().numpy()
+    vw = np.ones(g.num_vertices)
+    if weighted:
+        vw[:] = 0
+        np.add.at(vw, adj.majors.cpu().numpy(), adj.weights.cpu().numpy().astype(np.float64))
+    prefix = np.concatenate([[0.0], np.cumsum(vw[nbr])])
+    size = prefix[off[1:]] - prefix[off[:-1]]  # the weight of each neighbour set
+    inter = np.zeros(len(v1))
+    hub_rows = {}
+    for i, (x, y) in enumerate(zip(v1.tolist(), v2.tolist())):
+        for h, o in ((x, y), (y, x)):
+            if off[h + 1] - off[h] > 4096:  # a hub: one mask for all its pairs
+                if h not in hub_rows:
+                    hub_rows[h] = np.zeros(g.num_vertices, bool)
+                    hub_rows[h][nbr[off[h]:off[h + 1]]] = True
+                common = nbr[off[o]:off[o + 1]][hub_rows[h][nbr[off[o]:off[o + 1]]]]
+                break
+        else:
+            common = np.intersect1d(nbr[off[x]:off[x + 1]], nbr[off[y]:off[y + 1]])
+        inter[i] = vw[common].sum()
+    a, b = size[v1], size[v2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = {"jaccard": inter / (a + b - inter), "sorensen": 2 * inter / (a + b),
+               "overlap": inter / np.minimum(a, b), "cosine": inter / np.sqrt(a * b)}
+    return {k: np.nan_to_num(v, nan=0.0, posinf=0.0) for k, v in out.items()}
+
+
+def check_similarity(g, results, weighted: bool, seed: int) -> dict:
+    """Each coefficient over the default pairs against float64 numpy on
+    SIMILARITY_PAIRS seeded pairs and every pair of the highest-degree
+    vertex."""
+    import numpy as np
+
+    v1, v2, _ = next(iter(results.values()))
+    require(bool((v1 < v2).all()), "default pairs are not u < v")
+    adj = g.csr()
+    loops = int((adj.majors == adj.minors).sum())
+    require(v1.numel() == (adj.num_edges - loops) // 2, "default pairs are not every edge once")
+    rng = np.random.default_rng(seed)
+    hub = int(torch.argmax(adj.degrees()))
+    pick = np.unique(np.concatenate([
+        rng.choice(v1.numel(), SIMILARITY_PAIRS, replace=False),
+        torch.nonzero((v1 == hub) | (v2 == hub)).squeeze(1).cpu().numpy()]))
+    a, b = v1.cpu().numpy()[pick], v2.cpu().numpy()[pick]
+    ref = similarity_reference(g, a, b, weighted)
+    out = dict(pairs=v1.numel(), checked=len(pick), hub=hub, hub_degree=int(adj.degrees()[hub]))
+    for kind, (r1, r2, c) in results.items():
+        require(torch.equal(r1, v1) and torch.equal(r2, v2), f"{kind}: pairs differ")
+        got = c.cpu().numpy()[pick].astype(np.float64)
+        err = np.abs(got - ref[kind])
+        if weighted:
+            bad = err > TOL_SIMILARITY_W_REL * np.abs(ref[kind])
+        else:
+            bad = err > TOL_SIMILARITY_ABS
+        require(not bad.any(), f"{kind} (weighted={weighted}): {int(bad.sum())} pairs off, "
+                f"max error {err.max()}")
+        out[kind] = dict(max_abs_err=float(err.max()), mean=float(c.double().mean()))
+    return out
+
+
+def check_all_pairs(g, result, seed: int) -> dict:
+    """all_pairs_similarity's pairs are exactly the two-hop pairs u < v
+    (scipy A @ A), and its Jaccard holds against float64 numpy on a seeded
+    sample."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    adj = g.csr()
+    v = g.num_vertices
+    m = sp.csr_matrix((np.ones(adj.num_edges), adj.minors.cpu().numpy(),
+                       adj.offsets.cpu().numpy()), shape=(v, v))
+    two = (m @ m).tocoo()
+    keep = two.row < two.col
+    want = np.unique(two.row[keep].astype(np.int64) * v + two.col[keep])
+    v1, v2, c = result
+    got = v1.long().cpu().numpy() * v + v2.long().cpu().numpy()
+    require(np.array_equal(got, want), "all_pairs_similarity pairs are not the two-hop pairs")
+    pick = np.random.default_rng(seed).choice(len(got), min(2048, len(got)), replace=False)
+    ref = similarity_reference(g, v1.cpu().numpy()[pick], v2.cpu().numpy()[pick], False)["jaccard"]
+    err = np.abs(c.cpu().numpy()[pick] - ref)
+    require(err.max() <= TOL_SIMILARITY_ABS, f"all_pairs_similarity error {err.max()}")
+    return dict(pairs=len(got), max_abs_err=float(err.max()))
+
+
+def mg_rmat_ingest(scale: int, seed: int) -> dict:
+    """mg_rmat_edgelist -> rmat_chunk_source -> distribute_edgelist_chunks
+    on a 1 x 1 mesh over NCCL (gloo where DEV is the CPU): the rank's
+    in_block equals a CSC of the shards built here in numpy (a stable sort
+    by (dst, src), offsets from a bincount)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import initialize_distributed, make_mesh
+    from cugraph_tpu_torch.dist.mg_graph import distribute_edgelist_chunks
+
+    v = 1 << scale
+    initialize_distributed(device=DEV, init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), device=DEV)
+        shards = ct.mg_rmat_edgelist(mesh, scale, 16 * v, seed=seed, scramble=True)
+        t = time.perf_counter()
+        mgg = distribute_edgelist_chunks(mesh, ct.rmat_chunk_source(shards), num_vertices=v)
+        sync()
+        seconds = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    src, dst = (torch.cat(a).cpu().numpy().astype(np.int64)
+                for a in zip(*ct.rmat_chunk_source(shards)()))
+    order = np.lexsort((src, dst))
+    want = dict(offsets=np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=v))]),
+                minors=src[order], majors=dst[order])
+    for key, ref in want.items():
+        got = getattr(mgg.in_block, key).cpu().numpy()
+        require(np.array_equal(got, ref), f"mg_rmat in_block.{key} differs from the numpy CSC "
+                "of the shards")
+    return dict(seconds=seconds, shards=len(shards), edges=mgg.num_edges)
+
+
+def sampling_path(g, small_scale: int, seed: int) -> dict:
+    """Neighbor sampling and random walks on the weighted s21 graph (the
+    main path's edges), link prediction on the symmetrized RMAT graph at
+    ``small_scale`` (unweighted and weighted), all-pairs similarity at
+    scale 10 and the MG R-MAT ingest at ``small_scale``: each phase with
+    the launch counters set to 0 just before and read just after, and an
+    independent check."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.prims.cuda import (
+        assemble_chunks,
+        cumsum_flat,
+        spmm_rows,
+        spmv_minplus,
+        spmv_sum,
+    )
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows,
+                "cumsum_flat": cumsum_flat, "assemble_chunks": assemble_chunks}
+    torch.cuda.reset_peak_memory_stats()
+    v = g.num_vertices
+    gen = torch.Generator(device=DEV).manual_seed(seed + 8)
+    starts = torch.randint(0, v, (SAMPLE_STARTS,), generator=gen, device=DEV, dtype=torch.int32)
+    walkers = torch.randint(0, v, (WALKERS,), generator=gen, device=DEV, dtype=torch.int32)
+    s_src, s_dst, s_v = rmat_edges(small_scale, seed)
+    wgen = torch.Generator(device=DEV).manual_seed(seed + 9)
+    gs = ct.from_edgelist(s_src, s_dst, num_vertices=s_v, symmetrize=True, device=DEV)
+    gsw = ct.from_edgelist(s_src, s_dst, 1.0 - torch.rand(s_src.numel(), generator=wgen, device=DEV),
+                           num_vertices=s_v, symmetrize=True, device=DEV)
+    t_src, t_dst, t_v = rmat_edges(10, seed)
+    g10 = ct.from_edgelist(t_src, t_dst, num_vertices=t_v, symmetrize=True, device=DEV)
+
+    def sample(replace, compress=True):
+        return ct.uniform_neighbor_sample(
+            g, starts, SAMPLE_FANOUTS, with_replacement=replace, compress=compress,
+            generator=torch.Generator(device=DEV).manual_seed(seed + 10))
+
+    def walk_gen():
+        return torch.Generator(device=DEV).manual_seed(seed + 11)
+
+    kinds = ("jaccard", "sorensen", "overlap", "cosine")
+    phases = {
+        "neighbor_sample": lambda: sample(False),
+        "neighbor_sample_replace": lambda: sample(True),
+        "neighbor_sample_all": lambda: ct.uniform_neighbor_sample(
+            g, starts, SAMPLE_ALL_FANOUTS, generator=torch.Generator(device=DEV).manual_seed(seed)),
+        "random_walks": lambda: ct.random_walks(g, walkers, WALK_LENGTH, generator=walk_gen()),
+        "biased_walks": lambda: ct.random_walks(g, walkers, WALK_LENGTH, biased=True,
+                                                generator=walk_gen()),
+        "node2vec": lambda: ct.node2vec(g, walkers, WALK_LENGTH, p=NODE2VEC_P, q=NODE2VEC_Q,
+                                        generator=walk_gen()),
+        "similarity": lambda: {k: getattr(ct, k)(gs) for k in kinds},
+        "similarity_weighted": lambda: {k: getattr(ct, k)(gsw, use_weight=True) for k in kinds},
+        "all_pairs_similarity": lambda: ct.all_pairs_similarity(g10, "jaccard"),
+        "all_pairs_topk": lambda: ct.all_pairs_similarity(g10, "jaccard", topk=100),
+        "mg_rmat_ingest": lambda: mg_rmat_ingest(small_scale, seed),
+    }
+    seconds, launches, results = {}, {}, {}
+    for name, fn in phases.items():
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        results[name] = fn()
+        sync()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = {n: c.launches for n, c in counters.items()}
+    log(f"sampling path seconds: {json.dumps(seconds)}")
+    log(f"sampling path launches: {json.dumps(launches)}")
+    out = dict(seconds=seconds, launches=launches)
+
+    for name, replace in (("neighbor_sample", False), ("neighbor_sample_replace", True)):
+        per_hop = sample(replace, compress=False)  # the same draws, padded
+        out[name] = check_neighbor_sample(g, starts, per_hop, results[name], replace)
+    out["neighbor_sample_all"] = check_all_neighbors(g, starts, results["neighbor_sample_all"],
+                                                     SAMPLE_ALL_FANOUTS)
+    for name in ("random_walks", "biased_walks", "node2vec"):
+        out[name] = check_walks(g, walkers, *results[name])
+    out["similarity"] = check_similarity(gs, results["similarity"], False, seed)
+    out["similarity_weighted"] = check_similarity(gsw, results["similarity_weighted"], True, seed)
+    out["all_pairs_similarity"] = check_all_pairs(g10, results["all_pairs_similarity"], seed)
+    top = results["all_pairs_topk"]
+    full_c = results["all_pairs_similarity"][2]
+    require(torch.equal(top[2], torch.sort(full_c, descending=True, stable=True).values[:100]),
+            "all_pairs_similarity topk is not the largest coefficients")
+    out["mg_rmat_ingest"] = results["mg_rmat_ingest"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"sampling path checks: {json.dumps({k: out[k] for k in out if k not in ('seconds', 'launches')})}")
+    del phases["mg_rmat_ingest"]  # its process group is gone
+    out["warm"] = warm_breakdown(phases)
+    return out
 
 
 # ------------------------------------------------------- community path
@@ -1800,10 +2255,13 @@ def main() -> int:
     # 7. the entry points of the scan and the chunk assembly, on the
     # weighted graph's CSC weights and the same E
     scan = scan_assemble_path(g, args.seed)
+
+    # 8. sampling and link prediction
+    spath = sampling_path(g, min(SMALL_SCALE, args.scale), args.seed)
     del g
     torch.cuda.empty_cache()
 
-    # 8. community path
+    # 9. community path
     cpath = community_path(args.scale, min(SMALL_SCALE, args.scale), args.seed)
     torch.cuda.empty_cache()
 
@@ -1821,6 +2279,7 @@ def main() -> int:
             by_path = dict(main_path=launches, mg_path=mgp["launches"][name],
                            weighted_path=on_path(name, wpath["launches"]),
                            gradient_path=path["gradient"]["launches"].get(name, 0))
+        by_path["sampling_path"] = on_path(name, spath["launches"])
         by_path["community_path"] = on_path(name, cpath["launches"])
         extra = {"weighted": weighted[name]} if name in weighted else {}
         if name in mgp["block"]:
@@ -1833,7 +2292,7 @@ def main() -> int:
     log(f"total: {time.perf_counter() - t_start:.1f} s after device setup")
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
                       "mg_path": mgp, "weighted_path": wpath, "scan_assemble_path": scan,
-                      "community_path": cpath, "card": smi}))
+                      "sampling_path": spath, "community_path": cpath, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

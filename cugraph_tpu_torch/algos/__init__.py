@@ -6,6 +6,7 @@ from .centrality import (
     katz_centrality,
 )
 from .link_analysis import hits, pagerank
+from .link_prediction import all_pairs_similarity, cosine, jaccard, overlap, sorensen
 from .traversal import bfs, extract_bfs_paths, sssp, two_hop_neighbors
 from .community import (
     analyze_clustering_edge_cut,

@@ -6,6 +6,7 @@ from .keyed import (
     transform_reduce_e_by_dst_key,
     transform_reduce_e_by_src_key,
 )
+from .random_select import per_v_random_select_outgoing_e
 from .per_v import (
     per_v_transform_reduce_incoming_e,
     per_v_transform_reduce_outgoing_e,

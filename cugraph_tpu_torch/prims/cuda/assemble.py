@@ -14,11 +14,15 @@ no chunk writes are zero (the Pallas kernel leaves them undefined). A CUDA
 tensor launches the kernel (and counts the launch in
 ``assemble_chunks.launches``); a CPU tensor takes the plain version. A
 chunk id outside its array raises ValueError on either device: the plain
-version checks the ids first, the kernel skips such a step and raises a
-flag that the wrapper reads after the launch.
+version checks the ids first; on the card the index kernel raises a flag
+in pinned host memory, which the C call reads once that kernel is done,
+while the copy runs.
 """
 
 from __future__ import annotations
+
+import ctypes
+import threading
 
 import torch
 
@@ -67,6 +71,31 @@ def assemble_chunks_reference(
     return out.view(out_rows, binned.shape[1])
 
 
+# device index -> (one pinned int32, the C call's bad-id flag; the event
+# the call waits on), both used only inside the call; the lock keeps calls
+# from threads one at a time
+_per_device: dict = {}
+_lock = threading.Lock()
+
+
+def _flag_and_event(device: torch.device):
+    """The pinned flag and the event of ``device``, made on its first call
+    (under ``_lock``, on the device)."""
+    got = _per_device.get(device.index)
+    if got is None:
+        event = ctypes.c_void_p()
+        raise_on_error("assemble_chunks", build.load("assemble").cgt_assemble_event(
+            ctypes.byref(event)))
+        got = _per_device[device.index] = (
+            torch.empty(1, dtype=torch.int32, pin_memory=True), event.value)
+    return got
+
+
+def _ids(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as contiguous ``dtype``, without a copy where it already is."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
 def assemble_chunks(
     binned: torch.Tensor,
     chunk_src: torch.Tensor,
@@ -75,11 +104,16 @@ def assemble_chunks(
     out_rows: int,
 ) -> torch.Tensor:
     """(out_rows, lanes) float32: chunk i of ``binned`` (``chunk_rows``
-    rows) copied to chunk ``chunk_dst[i]`` of the output, zeros elsewhere."""
-    if binned.device.type == "cpu":
+    rows) copied to chunk ``chunk_dst[i]`` of the output, zeros elsewhere.
+    On the card the call waits for the index pass (it reads the kernel's
+    bad-id flag), not for the copy; the output is a view at the front of
+    one allocation that also holds the copy's index (4 B an output
+    chunk)."""
+    dev = binned.device
+    if dev.type == "cpu":
         return assemble_chunks_reference(binned, chunk_src, chunk_dst, chunk_rows, out_rows)
-    if binned.device.type != "cuda":
-        raise RuntimeError(f"assemble_chunks: binned must be a CUDA or CPU tensor, got {binned.device}")
+    if dev.type != "cuda":
+        raise RuntimeError(f"assemble_chunks: binned must be a CUDA or CPU tensor, got {dev}")
     width = _check(binned, chunk_src, chunk_dst, chunk_rows, out_rows)
     if width % 4:
         raise ValueError(f"assemble_chunks: a chunk of {width} floats is not whole float4s")
@@ -88,20 +122,28 @@ def assemble_chunks(
     in_chunks, out_chunks = binned.shape[0] // chunk_rows, out_rows // chunk_rows
     if max(in_chunks, out_chunks, chunk_src.numel()) >= 2**31:
         raise ValueError("assemble_chunks: too many chunks for int32 chunk ids")
-    cs = chunk_src.to(torch.int32).contiguous()
-    cd = chunk_dst.to(torch.int32).contiguous()
-    out = torch.empty(out_rows, binned.shape[1], dtype=torch.float32, device=binned.device)
-    inv = torch.empty(out_chunks + 1, dtype=torch.int32, device=binned.device)  # + error flag
-    with on_device(binned.device):
+    # int64 ids go to the kernel as they are: cutting them to int32 could
+    # wrap an id outside the arrays into them
+    wide = torch.int64 in (chunk_src.dtype, chunk_dst.dtype)
+    id_dtype = torch.int64 if wide else torch.int32
+    cs, cd = _ids(chunk_src, id_dtype), _ids(chunk_dst, id_dtype)
+    # one allocation: the output, then the inverse (4 B an output chunk),
+    # which the copy reads after the call returns; on a bad id the copy
+    # still runs and the allocation goes back to the stream's pool
+    n = out_rows * binned.shape[1]
+    buf = torch.empty(n + out_chunks, dtype=torch.float32, device=dev)
+    with _lock, on_device(dev):
+        flag, event = _flag_and_event(dev)
         rc = build.load("assemble").cgt_assemble_chunks(
-            binned.data_ptr(), cs.data_ptr(), cd.data_ptr(), inv.data_ptr(), out.data_ptr(),
-            cs.numel(), in_chunks, out_chunks, width // 4, stream_of(binned.device),
+            binned.data_ptr(), cs.data_ptr(), cd.data_ptr(), buf.data_ptr() + 4 * n,
+            buf.data_ptr(), flag.data_ptr(), event, cs.numel(), in_chunks, out_chunks,
+            width // 4, int(wide), stream_of(dev),
         )
-    raise_on_error("assemble_chunks", rc)
-    if int(inv[out_chunks]):
+    if rc == -1:
         raise _bad_ids()
+    raise_on_error("assemble_chunks", rc)
     assemble_chunks.launches += 1
-    return out
+    return buf[:n].view(out_rows, binned.shape[1])
 
 
 assemble_chunks.launches = 0

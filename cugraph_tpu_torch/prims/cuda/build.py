@@ -49,9 +49,12 @@ SIGNATURES = {
         "cgt_cumsum_flat": [_VP, _VP, _VP, _I64, _VP],
     },
     "assemble": {
-        # binned, chunk_src, chunk_dst, inv, out, n_steps, in_chunks,
-        # out_chunks, vec_per_chunk, stream
-        "cgt_assemble_chunks": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
+        # binned, chunk_src, chunk_dst, inv, out, host_flag, indexed event,
+        # n_steps, in_chunks, out_chunks, vec_per_chunk, ids64, stream
+        "cgt_assemble_chunks": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                                _INT, _VP],
+        # out: the new event
+        "cgt_assemble_event": [ctypes.POINTER(_VP)],
     },
 }
 

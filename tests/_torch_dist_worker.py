@@ -173,3 +173,21 @@ def run_launch_counts(rank: int) -> dict:
     params = mg_gnn.init_sage_params(torch.Generator().manual_seed(0), 8, 8, 4, device="cpu")
     mg_gnn.mg_sage_forward(mesh, mgg, params, feats)
     return {"before": before, "after": _launches(), "shape": mesh.shape}
+
+
+def run_rmat_shards(rank: int, shape, scale: int, num_edges: int, seed: int) -> dict:
+    """mg_rmat_edgelist -> rmat_chunk_source -> distribute_edgelist_chunks:
+    every shard as this rank drew it, and the rank's in_block."""
+    from cugraph_tpu_torch import mg_rmat_edgelist, rmat_chunk_source
+    from cugraph_tpu_torch.dist import make_mesh
+    from cugraph_tpu_torch.dist.mg_graph import distribute_edgelist_chunks
+
+    mesh = make_mesh(shape, device="cpu")
+    shards = mg_rmat_edgelist(mesh, scale, num_edges, seed=seed, scramble=True)
+    source = rmat_chunk_source(shards)
+    mgg = distribute_edgelist_chunks(mesh, source, num_vertices=1 << scale)
+    blk = mgg.in_block
+    return {"i": mesh.i, "j": mesh.j, "vp": mgg.vp, "shape": shards.shape,
+            "shards": [(_np(s), _np(d)) for s, d in source()],
+            "in_block": {"offsets": _np(blk.offsets), "minors": _np(blk.minors),
+                         "majors": _np(blk.majors)}}

@@ -242,9 +242,9 @@ def _exports(pkg):
 
 def test_prims_exports_the_jax_names():
     want, got = _exports(jprims), _exports(tprims)
-    # not ported yet (ROADMAP queue 1, item 2)
-    assert want - got == {"per_v_random_select_outgoing_e"}
-    for name in ("LOGICAL_OR", "update_v_frontier", "transform_reduce_e", "count_if_e",
+    assert want - got == set()
+    for name in ("LOGICAL_OR", "update_v_frontier", "per_v_random_select_outgoing_e",
+                 "transform_reduce_e", "count_if_e",
                  "transform_e", "extract_if_e", "transform_reduce_v", "reduce_v", "count_if_v",
                  "transform_reduce_e_by_src_key", "transform_reduce_e_by_dst_key",
                  "aggregate_outgoing_e_by_dst_key",

@@ -196,15 +196,26 @@ def test_contains_sorted_and_candidate_tile_match_jax(graphs):
     verts = rng.integers(0, v, 64).astype(np.int32)
     width = int(np.diff(np.asarray(jadj.offsets)).max())
     jc, jm = jint._candidate_tile(jadj, jnp.asarray(verts), width)
-    tc, tm = tint._candidate_tile(tadj, torch.from_numpy(verts), width)
-    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
-    np.testing.assert_array_equal(tc.numpy()[tm.numpy()], np.asarray(jc)[np.asarray(jm)])
+    # the port expands each row on its own (ragged_chunks) where the JAX
+    # package tiles it: the tile's valid slots, row-major, at 5-slot chunks
+    tverts = torch.from_numpy(verts).long()
+    offsets = tadj.offsets.long()
+    degs = offsets[tverts + 1] - offsets[tverts]
+    rows, cands = [], []
+    for _, _, owner, rank in tint.ragged_chunks(degs, 5):
+        rows.append(owner)
+        cands.append(tadj.minors[offsets[tverts[owner]] + rank])
+    jm = np.asarray(jm)
+    np.testing.assert_array_equal(torch.cat(rows).numpy(), np.nonzero(jm)[0])
+    np.testing.assert_array_equal(torch.cat(cands).numpy(), np.asarray(jc)[jm])
     q = rng.integers(0, v, (64, 16)).astype(np.int32)
     lo = np.asarray(jadj.offsets)[verts][:, None]
     hi = np.asarray(jadj.offsets)[verts + 1][:, None]
     want = jint._contains_sorted(jadj.minors, jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(q))
-    got = tint._contains_sorted(tadj.minors, torch.from_numpy(lo), torch.from_numpy(hi),
-                                torch.from_numpy(q))
+    # the port searches the sorted edge keys where the JAX package searches
+    # each row's minors
+    got = tint.edge_multiplicity(tint.edge_keys(tadj), tadj.num_minors,
+                                 torch.from_numpy(verts)[:, None], torch.from_numpy(q)) > 0
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.any()
 

@@ -12,6 +12,7 @@
 """
 
 import ast
+import types
 from pathlib import Path
 
 import numpy as np
@@ -53,7 +54,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(files) > 15
     for mod in ("dist/mg_algos.py", "algos/community.py", "algos/components.py",
                 "algos/cores.py", "prims/keyed.py", "prims/intersection.py",
-                "prims/cuda/scan.py", "prims/cuda/assemble.py", "core/coarsen.py"):
+                "prims/cuda/scan.py", "prims/cuda/assemble.py", "core/coarsen.py",
+                "algos/link_prediction.py", "prims/random_select.py", "generators/simple.py",
+                "generators/rmat.py", "sampling/uniform_neighbor_sample.py",
+                "sampling/random_walks.py"):
         assert ROOT / "cugraph_tpu_torch" / mod in files
     bad = [
         (str(f.relative_to(ROOT)), mod)
@@ -79,6 +83,14 @@ ENTRY_POINTS = {
     "init_sage_params": lambda: ctd.mg_gnn.init_sage_params(torch.Generator(), 4, 4, 2),
     "sage_params_from_jax": lambda: ctd.mg_gnn.sage_params_from_jax(
         {k: np.zeros((2, 2)) for k in ctd.mg_gnn.SAGE_PARAMS}),
+    "path_graph_edgelist": lambda: ct.simple_generators.path_graph_edgelist(4),
+    "complete_graph_edgelist": lambda: ct.simple_generators.complete_graph_edgelist(4),
+    "mesh_2d_edgelist": lambda: ct.simple_generators.mesh_2d_edgelist(2, 2),
+    "mesh_3d_edgelist": lambda: ct.simple_generators.mesh_3d_edgelist(2, 2, 2),
+    "erdos_renyi_gnp_edgelist": lambda: ct.simple_generators.erdos_renyi_gnp_edgelist(8, 0.5),
+    # a mesh whose ranks sit on cards
+    "mg_rmat_edgelist": lambda: ct.mg_rmat_edgelist(
+        types.SimpleNamespace(shape=(1, 1), device=torch.device("cuda")), 4, 16),
 }
 
 
@@ -131,6 +143,19 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
     ct.ego_graph(gs, 0, 2)
     ct.spectral_balanced_cut_clustering(gs, 2)
     ct.spectral_modularity_maximization_clustering(gs, 2)
+    gsw = ct.from_edgelist(src, dst, rng.random(300), num_vertices=50, symmetrize=True,
+                           device="cpu")
+    for kind in (ct.jaccard, ct.sorensen, ct.overlap, ct.cosine):
+        kind(gs)
+        kind(gsw, use_weight=True)
+    ct.all_pairs_similarity(gs, topk=5)
+    ct.uniform_neighbor_sample(gw, [0, 1, 2], [3, -1])
+    ct.random_walks(gw, [0, 1], 4)
+    ct.random_walks(gw, [0, 1], 4, biased=True)
+    ct.node2vec(gw, [0, 1], 4, p=0.5, q=2.0)
+    shards = ct.mg_rmat_edgelist(types.SimpleNamespace(shape=(2, 1), device=torch.device("cpu")),
+                                 5, 64)
+    assert [s_.shape for s_, _ in ct.rmat_chunk_source(shards)()] == [(32,), (32,)]
     assert [fn.launches for fn in counters] == before == [0] * len(counters)
 
 
