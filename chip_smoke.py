@@ -79,6 +79,25 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    reference: scipy's weak and strong components, the core numbers by
    h-index iteration from the degrees, float64 modularity above the
    singletons', a min-degree probe count of triangles and k-truss support.
+10. API path: the s21 edges as a pandas frame of sparse int64 ids (id *
+   an odd constant mod 2^64) -> api.Graph().from_pandas_edgelist, twice,
+   NumberMap.renumber timed apart; its internal ids against
+   compute_renumber_map over np.unique's codes, 2^20 ids round-tripped,
+   an unknown id raising. The dataframe pagerank, bfs, sssp,
+   connected_components, jaccard (2^16 given pairs) and
+   uniform_neighbor_sample ([25, 10] from 1,024 starts), each timed first
+   and warm (the median of 5, in turns) beside the port's core call on
+   G.core, each frame equal to
+   the core result through to_external and launching the same kernels.
+   Save and load of the s21 graph (bytes, seconds; equal CSR and CSC),
+   check_edgelist on its edges with the checks on (an id out of range
+   raises); both spanning trees on the weighted symmetrized graph at
+   SMALL_SCALE (V - components edges, each a graph edge with its weight;
+   the total at scale 12 against networkx's); hungarian on 2,048 x 2,048
+   against scipy on a matrix built apart; force_atlas2 (500 iterations)
+   on the symmetrized scale-14 graph: finite, its peak memory far under
+   the unblocked step's 20 V^2 bytes, its first 3 steps each against a
+   float64 step over all pairs, 50 iterations under the profiler.
 
 The line before the last is one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}. Without CUDA the script exits
@@ -172,6 +191,30 @@ NODE2VEC_P, NODE2VEC_Q = 1.0, 0.5
 SIMILARITY_PAIRS = 4096
 TOL_SIMILARITY_ABS = 1e-6
 TOL_SIMILARITY_W_REL = 1e-5
+
+
+# the API path: external ids id * this odd constant mod 2^64, sparse int64
+# values that pandas' factorize has to hash; 2^20 of them round-tripped;
+# Jaccard on 2^16 given pairs (half of them edges, half drawn)
+API_ID_MULTIPLIER = 0x9E3779B97F4A7C15
+API_ROUNDTRIP_IDS = 1 << 20
+API_JACCARD_PAIRS = 1 << 16
+API_PAGERANK_TOL = 1e-9
+# warm times: the median of 5 calls, wrapper and core call in turns (one
+# warm call of each read the sampler's layer as -18.9 ms on an H100)
+API_WARM_REPS = 5
+# hungarian on a complete bipartite graph of 2,048 workers and 2,048 tasks
+HUNGARIAN_SIDE = 2048
+# force_atlas2: 500 iterations (the default) on the symmetrized RMAT scale-14
+# graph, 50 more under the profiler; each of the first 3 steps against a
+# float64 step over (V, V) pairs from the same state (fa2_step_errors),
+# each coordinate's error over its scale: a row's 2^14 repulsion terms
+# summed in f32 in another order, typically within sqrt(n) eps ~ 8e-6 of
+# the sum of their absolute values; 1e-5, as TOL_SUM_REL for the sum kernels
+FA2_SCALE = 14
+FA2_CHECK_STEPS = 3
+FA2_PROFILED_STEPS = 50
+TOL_FA2_STEP_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -2168,6 +2211,390 @@ def community_path(scale: int, small_scale: int, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------- API path
+
+
+def external_ids(ids):
+    """Distinct sparse int64 external ids: id * API_ID_MULTIPLIER mod 2^64,
+    a bijection (the multiplier is odd), as a host array."""
+    import numpy as np
+
+    return (ids.cpu().numpy().astype(np.uint64) * np.uint64(API_ID_MULTIPLIER)).view(np.int64)
+
+
+def reference_fa2(g, pos, forces, speed) -> tuple:
+    """One FA2 step with the default options in float64, every pair at once
+    ((V, V) temporaries): the JAX package's step written out apart from
+    the port's blocked one. Returns (pos, forces, speed, size): size is
+    each coordinate's scale for an f32 error, its step factor times the
+    sum of the absolute values of its force's terms, plus |pos|."""
+    csr = g.csr()
+    deg = (csr.offsets[1:] - csr.offsets[:-1]).double() + 1
+    s, d = csr.majors.long(), csr.minors.long()
+    pos, forces, speed = pos.double(), forces.double(), speed.double()
+    diff = pos[:, None, :] - pos[None, :, :]
+    rep = 2.0 * deg[:, None] * deg[None, :] / ((diff * diff).sum(-1) + 1e-9)
+    rep.fill_diagonal_(0.0)
+    f_rep = (rep[:, :, None] * diff).sum(1)
+    terms = (rep[:, :, None] * diff.abs()).sum(1)
+    del diff, rep
+    f_grav = -deg[:, None] * pos / (torch.sqrt((pos * pos).sum(-1)) + 1e-9)[:, None]
+    ediff = pos[d] - pos[s]
+    edist = torch.sqrt((ediff * ediff).sum(-1)) + 1e-9
+    coef = edist / deg[s] / edist  # unit weights
+    f_attr = torch.zeros_like(pos).index_add_(0, s, coef[:, None] * ediff)
+    terms += f_grav.abs() + torch.zeros_like(pos).index_add_(0, s, (coef[:, None] * ediff).abs())
+    new = f_rep + f_grav + f_attr
+    swing = torch.sqrt(((forces - new) ** 2).sum(-1))
+    traction = 0.5 * torch.sqrt(((forces + new) ** 2).sum(-1))
+    target = (deg * traction).sum() / ((deg * swing).sum() + 1e-9)
+    speed = speed * torch.clamp(target / torch.clamp(speed, min=1e-9), 0.5, 1.5)
+    factor = (speed / (1.0 + torch.sqrt(speed * swing)))[:, None]
+    pos = pos + new * factor
+    return pos, new, speed, factor * terms + pos.abs()
+
+
+def fa2_step_errors(g, steps: int) -> list:
+    """FA2 is chaotic in f32 (a close pair's repulsion goes as 1 / distance),
+    so the port is held to the float64 step one step at a time: from the
+    float64 run's state rounded to f32, the port's step (the blocked
+    repulsion, default options) against the float64 step. Each error is
+    the largest of |pos - ref| / size over the coordinates (size from
+    reference_fa2), as a sum's error is taken against the sum of its
+    terms' absolute values. The run starts at the port's default start
+    (seed 0, drawn in float64, kept in float32)."""
+    import numpy as np
+
+    from cugraph_tpu_torch.algos import layout
+
+    v = g.num_vertices
+    fg = layout._fa2_graph(g, 1.0)
+    pos = torch.from_numpy(
+        np.random.default_rng(0).uniform(-100, 100, (v, 2)).astype(np.float32)).to(DEV)
+    forces = torch.zeros_like(pos)
+    speed = torch.ones((), dtype=torch.float32, device=DEV)
+    require(torch.equal(layout.force_atlas2(g, max_iter=0), pos), "fa2's default start")
+    errors = []
+    for _ in range(steps):
+        # both steps from the same f32 state
+        pos, forces, speed = pos.float(), forces.float(), speed.float()
+        got, _, _ = layout._fa2_step(fg, pos, forces, speed, 1.0, 1.0, 2.0, False, True, False)
+        pos, forces, speed, size = reference_fa2(g, pos, forces, speed)
+        errors.append(((got.double() - pos).abs() / size).max().item())
+    return errors
+
+
+def api_path(scale: int, small_scale: int, seed: int) -> dict:
+    """The user-facing layer at RMAT ``scale``: the graph built through
+    api.Graph from a pandas frame of sparse int64 ids (NumberMap timed
+    apart), the dataframe algorithms beside the port's core calls,
+    serialization, the expensive checks; then the spanning trees at
+    ``small_scale``, hungarian on 2,048 x 2,048 and force_atlas2 at scale
+    14. Each part timed, with the launch counters set to 0 just before
+    and read just after, and checked by code that does not run through
+    it."""
+    import networkx as nx
+    import numpy as np
+    import pandas as pd
+    import scipy.optimize as spo
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch import api
+    from cugraph_tpu_torch.api import algorithms as alg
+    from cugraph_tpu_torch.core import serialize
+    from cugraph_tpu_torch.core.renumber import NumberMap
+    from cugraph_tpu_torch.prims.cuda import (
+        assemble_chunks,
+        cumsum_flat,
+        spmm_rows,
+        spmv_minplus,
+        spmv_sum,
+    )
+    from cugraph_tpu_torch.utils import validation
+    from cugraph_tpu_torch.utils.error import GraphError
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows,
+                "cumsum_flat": cumsum_flat, "assemble_chunks": assemble_chunks}
+    seconds, launches = {}, {}
+
+    def run(name, fn):
+        """Time fn; its launches are added to those of earlier calls of
+        the same name."""
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        seconds[name] = time.perf_counter() - t
+        prev = launches.get(name, {})
+        launches[name] = {n: prev.get(n, 0) + c.launches for n, c in counters.items()}
+        return out
+
+    def raises(fn) -> bool:
+        try:
+            fn()
+        except GraphError:
+            return True
+        return False
+
+    out = {}
+    # --- graph build through the API, NumberMap timed apart
+    src, dst, v = rmat_edges(scale, seed)
+    e = src.numel()
+    df = pd.DataFrame({"source": external_ids(src), "destination": external_ids(dst)})
+    del src, dst
+    run("graph_first", lambda: api.Graph(device=DEV).from_pandas_edgelist(df))
+    # the build's first pass alone, as from_pandas_edgelist calls it
+    run("numbermap", lambda: NumberMap.renumber(df, "source", "destination", device=DEV))
+    G = run("graph_warm", lambda: api.Graph(device=DEV).from_pandas_edgelist(df))
+    out["graph"] = dict(rows=e, vertices=G.number_of_vertices(), edges_stored=G.core.num_edges,
+                        seconds=[seconds["graph_first"], seconds["graph_warm"]],
+                        numbermap_seconds=seconds["numbermap"],
+                        numbermap_share=seconds["numbermap"] / seconds["graph_warm"])
+    # the internal ids against compute_renumber_map over numpy's codes:
+    # np.unique's sorted ids, each row's code its rank there (searched on
+    # the card: return_inverse would argsort all 2E ids on the host)
+    t = time.perf_counter()
+    allv = np.concatenate([df["source"].to_numpy(), df["destination"].to_numpy()])
+    uniq = np.unique(allv)
+    codes = torch.searchsorted(torch.from_numpy(uniq).to(DEV), torch.from_numpy(allv).to(DEV))
+    del allv
+    new_to_old = ct.compute_renumber_map(codes[:e], codes[e:], len(uniq), device=DEV)
+    del codes
+    require(np.array_equal(G.vertex_ids_external(), uniq[new_to_old.cpu().numpy()]),
+            "NumberMap's internal ids differ from compute_renumber_map over np.unique's codes")
+    out["graph"]["reference_seconds"] = time.perf_counter() - t
+    absent = external_ids(torch.tensor([v]))  # the image of an id past the R-MAT ids
+    v = G.number_of_vertices()  # the ids that occur in an edge
+    gen = np.random.default_rng(seed)
+    ids = gen.integers(0, v, API_ROUNDTRIP_IDS)
+    t = time.perf_counter()
+    back = G.to_internal(G.to_external(ids))
+    out["graph"]["roundtrip_seconds"] = time.perf_counter() - t
+    require(np.array_equal(back, ids), "to_internal(to_external(ids)) does not round-trip")
+    require(raises(lambda: G.to_internal(absent)), "an unknown external id must raise")
+    log(f"api graph: {json.dumps(out['graph'])}")
+
+    # --- the dataframe algorithms beside the port's core calls
+    core = G.core
+    ext = G.to_external
+    vid = G.vertex_ids_external()
+    start_ext = vid[:1]
+    start_int = G.to_internal(start_ext)
+    csr = core.csr()
+    half = API_JACCARD_PAIRS // 2
+    pick = torch.randint(0, core.num_edges, (half,), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(seed + 12))
+    p1 = torch.cat([csr.majors[pick], torch.randint(0, v, (half,), device=DEV, dtype=torch.int32)])
+    p2 = torch.cat([csr.minors[pick], torch.randint(0, v, (half,), device=DEV, dtype=torch.int32)])
+    pairs_ext = (ext(p1), ext(p2))
+    starts_int = gen.integers(0, v, SAMPLE_STARTS)
+    starts_ext = ext(starts_int)
+
+    def sample_gen():
+        return torch.Generator(device=DEV).manual_seed(seed + 13)
+
+    def host(t):
+        return t.cpu().numpy()
+
+    def pred_ext(p):
+        p = host(p)
+        return np.where(p >= 0, ext(np.maximum(p, 0)), -1)
+
+    def vframe(**cols):
+        return pd.DataFrame({"vertex": vid, **cols})
+
+    pairs = {
+        # tol 1e-9: the default 1e-5 stops after one iteration at this V
+        # (the loop runs while the L1 change exceeds V * tol)
+        "pagerank": (lambda: alg.pagerank(G, tol=API_PAGERANK_TOL),
+                     lambda: ct.pagerank(core, tol=API_PAGERANK_TOL, max_iterations=100),
+                     lambda r: vframe(pagerank=host(r[0]))),
+        "bfs": (lambda: alg.bfs(G, start_ext),
+                lambda: ct.bfs(core, start_int),
+                lambda r: vframe(distance=host(r[0]), predecessor=pred_ext(r[1]))),
+        "sssp": (lambda: alg.sssp(G, start_ext),
+                 lambda: ct.sssp(core, start_int),
+                 lambda r: vframe(distance=host(r[0]), predecessor=pred_ext(r[1]))),
+        "connected_components": (lambda: alg.connected_components(G),
+                                 lambda: ct.weakly_connected_components(core),
+                                 lambda r: vframe(labels=host(r))),
+        "jaccard": (lambda: alg.jaccard(G, pairs=pairs_ext),
+                    lambda: ct.jaccard(core, pairs=(p1, p2)),
+                    lambda r: pd.DataFrame({"first": ext(r[0]), "second": ext(r[1]),
+                                            "jaccard_coeff": host(r[2])})),
+        "uniform_neighbor_sample": (
+            lambda: alg.uniform_neighbor_sample(G, starts_ext, list(SAMPLE_FANOUTS),
+                                                generator=sample_gen()),
+            lambda: ct.uniform_neighbor_sample(core, starts_int, list(SAMPLE_FANOUTS),
+                                               generator=sample_gen()),
+            lambda r: pd.DataFrame({"sources": ext(r["sources"]),
+                                    "destinations": ext(r["destinations"]),
+                                    "hop_id": host(r["hop"])})),
+    }
+    algos, core_results = {}, {}
+    for name, (wrapper, core_call, as_frame) in pairs.items():
+        got = run(f"api_{name}", wrapper)
+        res = core_results[name] = run(f"core_{name}", core_call)
+        t = time.perf_counter()
+        want = as_frame(res)
+        convert_s = time.perf_counter() - t
+        pd.testing.assert_frame_equal(got, want, check_dtype=False, check_exact=True)
+        require(launches[f"api_{name}"] == launches[f"core_{name}"],
+                f"api {name} launched {launches[f'api_{name}']}, "
+                f"its core call {launches[f'core_{name}']}")
+        # warm: wrapper and core call in turns, the median of each
+        warm = {"api": [], "core": []}
+        for _ in range(API_WARM_REPS):
+            for side, fn in (("api", wrapper), ("core", core_call)):
+                run(f"{side}_{name}_warm", fn)
+                warm[side].append(seconds[f"{side}_{name}_warm"])
+        for side in warm:
+            seconds[f"{side}_{name}_warm"] = statistics.median(warm[side])
+        algos[name] = dict(
+            rows=len(got), launches=launches[f"api_{name}"],
+            warm_launches=launches[f"api_{name}_warm"],
+            api_s=[seconds[f"api_{name}"], seconds[f"api_{name}_warm"]],
+            core_s=[seconds[f"core_{name}"], seconds[f"core_{name}_warm"]],
+            layer_s=seconds[f"api_{name}_warm"] - seconds[f"core_{name}_warm"],
+            warm_s=warm, check_frame_s=convert_s)
+    require(algos["pagerank"]["launches"]["spmv_sum"] > 0, "api pagerank must launch spmv_sum")
+    require(algos["bfs"]["launches"]["spmv_minplus"] > 0, "api bfs must launch spmv_minplus")
+    out["algorithms"] = algos
+    log(f"api algorithms: {json.dumps(algos)}")
+
+    # the kernels on this graph against their plain versions, and the core
+    # calls the frames were held to against the float64 PageRank and the
+    # BFS over spmv_minplus_reference (outside run(): not counted)
+    kgen = torch.Generator(device=DEV).manual_seed(seed + 15)
+    adj, nv = core.csc(), core.num_vertices
+    x = torch.rand(nv, generator=kgen, device=DEV) / nv
+    sum_err = check_spmv_sum(adj, x)
+    ids = torch.arange(nv, dtype=torch.float32, device=DEV)
+    xb = torch.where(torch.rand(nv, generator=kgen, device=DEV) < 0.1, ids, float("inf"))
+    check_spmv_minplus(adj, xb, use_weights=False)
+    pr, iters = core_results["pagerank"]
+    pr_err = rel_err(pr, reference_pagerank(core, iters))
+    require(pr_err <= TOL_CENTRALITY_REL, f"api graph pagerank error {pr_err} > {TOL_CENTRALITY_REL}")
+    rd, rp = reference_bfs(core, int(start_int[0]))
+    dist, pred = core_results["bfs"]
+    require(torch.equal(dist, rd) and torch.equal(pred, rp),
+            "api graph bfs differs from the reference")
+    out["kernel_checks"] = dict(
+        spmv_sum_max_abs_err=sum_err, spmv_sum_tol=f"rel {TOL_SUM_REL} of the row's sum of |x|",
+        spmv_minplus="bit-exact, +inf pattern equal", pagerank_iterations=iters,
+        pagerank_rel_err=pr_err, pagerank_tol=TOL_CENTRALITY_REL, bfs="equal to the reference")
+    log(f"api kernel checks: {json.dumps(out['kernel_checks'])}")
+    del G, core, csr, pick, p1, p2, adj, x, xb, ids, core_results, pr, dist, pred, rd, rp
+    torch.cuda.empty_cache()
+
+    # --- serialization of the s21 graph, and the expensive checks on its edges
+    src, dst, v = rmat_edges(scale, seed)
+    g = ct.from_edgelist(src, dst, num_vertices=v, device=DEV)
+    blob = run("serialize", lambda: serialize.serialize_graph(g))
+    g2 = run("deserialize", lambda: serialize.deserialize_graph(blob, device=DEV))
+    for a, b in ((g.csr(), g2.csr()), (g.csc(), g2.csc())):
+        require(all(torch.equal(getattr(a, k), getattr(b, k))
+                    for k in ("offsets", "majors", "minors")) and b.weights is None,
+                "the loaded graph's CSR or CSC differs from the original")
+    out["serialize"] = dict(bytes=len(blob), edges=g.num_edges, save_s=seconds["serialize"],
+                            load_s=seconds["deserialize"])
+    del blob, g2
+    validation.set_expensive_checks(True)
+    try:
+        run("check_edgelist", lambda: validation.check_edgelist(src, dst, None, v))
+        bad = dst.clone()
+        bad[-1] = v
+        require(raises(lambda: validation.check_edgelist(src, bad, None, v)),
+                "check_edgelist must raise on an id out of range")
+    finally:
+        validation.set_expensive_checks(False)
+    out["check_edgelist"] = dict(edges=src.numel(), seconds=seconds["check_edgelist"])
+    del g, src, dst, bad
+    torch.cuda.empty_cache()
+    log(f"api serialize, checks: {json.dumps([out['serialize'], out['check_edgelist']])}")
+
+    # --- spanning trees on the weighted symmetrized small-scale graph
+    s_src, s_dst, s_v = rmat_edges(small_scale, seed)
+    wgen = torch.Generator(device=DEV).manual_seed(seed + 9)
+    gsw = ct.from_edgelist(s_src, s_dst, 1.0 - torch.rand(s_src.numel(), generator=wgen, device=DEV),
+                           num_vertices=s_v, symmetrize=True, device=DEV)
+    trees = {}
+    n_wcc = int(torch.unique(ct.weakly_connected_components(gsw)).numel())
+    scsr = gsw.csr()
+    keys = scsr.majors.long() * s_v + scsr.minors.long()  # sorted: CSR order
+    for name in ("minimum_spanning_tree", "maximum_spanning_tree"):
+        ts, td, tw = run(name, lambda: getattr(ct, name)(gsw))
+        require(ts.numel() == s_v - n_wcc, f"{name}: {ts.numel()} edges, V - components "
+                f"{s_v - n_wcc}")
+        tk = ts.long() * s_v + td.long()
+        pos = torch.searchsorted(keys, tk).clamp(max=keys.numel() - 1)
+        require(bool((keys[pos] == tk).all()) and torch.equal(scsr.weights[pos], tw),
+                f"{name}: a tree edge is not in the graph with its weight")
+        trees[name] = dict(edges=ts.numel(), total=float(tw.double().sum()),
+                           seconds=seconds[name], launches=launches[name])
+    require(trees["minimum_spanning_tree"]["total"] <= trees["maximum_spanning_tree"]["total"],
+            "the minimum tree weighs more than the maximum tree")
+    # the total weight against networkx's tree at scale 12 (symmetric weights)
+    t_src, t_dst, t_v = rmat_edges(12, seed)
+    g12 = ct.from_edgelist(t_src, t_dst, 1.0 - torch.rand(t_src.numel(), generator=wgen, device=DEV),
+                           num_vertices=t_v, symmetrize=True, device=DEV)
+    a, b, w = (host(x) for x in ct.core.decompress_to_edgelist(g12))
+    G12 = nx.Graph()
+    G12.add_weighted_edges_from((int(x), int(y), float(z)) for x, y, z in zip(a, b, w) if x < y)
+    nx_total = nx.minimum_spanning_tree(G12).size(weight="weight")
+    total12 = float(ct.minimum_spanning_tree(g12)[2].double().sum())
+    require(abs(total12 - nx_total) <= 1e-9 * nx_total,
+            f"scale-12 tree weight {total12} vs networkx {nx_total}")
+    trees.update(scale=small_scale, edges_stored=gsw.num_edges, components=n_wcc,
+                 scale12_total=total12, scale12_networkx=nx_total)
+    out["spanning_trees"] = trees
+    log(f"api spanning trees: {json.dumps(trees)}")
+    del gsw, scsr, keys, g12
+
+    # --- hungarian on a complete bipartite graph
+    n = HUNGARIAN_SIDE
+    cost = np.random.default_rng(seed + 14).random((n, n)).astype(np.float32)
+    workers = np.arange(n, dtype=np.int32)
+    gh = ct.from_edgelist(np.repeat(workers, n), np.tile(workers + n, n), cost.reshape(-1),
+                          num_vertices=2 * n, device=DEV)
+    total, assign = run("hungarian", lambda: ct.hungarian(gh, workers))
+    rows, cols = spo.linear_sum_assignment(cost.astype(np.float64))
+    ref = float(cost.astype(np.float64)[rows, cols].sum())
+    require(abs(total - ref) <= 1e-9 * ref, f"hungarian cost {total} vs scipy {ref}")
+    require(np.array_equal(np.sort(host(assign)), workers + n), "the assignment is no permutation")
+    require(abs(float(cost[workers, host(assign) - n].astype(np.float64).sum()) - ref)
+            <= 1e-9 * ref, "the assignment does not cost what hungarian returned")
+    out["hungarian"] = dict(workers=n, tasks=n, edges=gh.num_edges, cost=total, scipy_cost=ref,
+                            seconds=seconds["hungarian"])
+    del gh
+
+    # --- force atlas 2 on the symmetrized scale-14 graph
+    f_src, f_dst, f_v = rmat_edges(FA2_SCALE, seed)
+    g14 = ct.from_edgelist(f_src, f_dst, num_vertices=f_v, symmetrize=True, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pos = run("force_atlas2", lambda: ct.force_atlas2(g14))
+    peak = torch.cuda.max_memory_allocated() - base
+    require(bool(torch.isfinite(pos).all()) and pos.shape == (f_v, 2), "fa2 positions")
+    unblocked = 20 * f_v * f_v
+    require(peak < unblocked / 4, f"fa2 peak {peak} B, the unblocked step's {unblocked}")
+    # the port's default start: seed 0, drawn in float64, kept in float32
+    fa2_err = fa2_step_errors(g14, FA2_CHECK_STEPS)
+    require(max(fa2_err) <= TOL_FA2_STEP_REL, f"fa2 steps against float64: {fa2_err} of max |pos|")
+    wall, device = profiled(lambda: ct.force_atlas2(g14, max_iter=FA2_PROFILED_STEPS))
+    busy = sum(us for _, us in device.values()) / 1e6
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:3]
+    out["force_atlas2"] = dict(
+        vertices=f_v, edges=g14.num_edges, iterations=500, seconds=seconds["force_atlas2"],
+        peak_bytes=peak, unblocked_bytes=unblocked, step_errors_f64=fa2_err,
+        profiled_iterations=FA2_PROFILED_STEPS, profiled_s=wall, device_busy_s=busy,
+        idle_share=1 - busy / wall if busy else None, top_kernels_ms=[[k[:80], c, us / 1e3] for k, (c, us) in top])
+    log(f"api hungarian, fa2: {json.dumps([out['hungarian'], out['force_atlas2']])}")
+    out["seconds"], out["launches"] = seconds, launches
+    return out
+
+
 # ----------------------------------------------------------------- main
 
 SOURCES = {
@@ -2265,6 +2692,13 @@ def main() -> int:
     cpath = community_path(args.scale, min(SMALL_SCALE, args.scale), args.seed)
     torch.cuda.empty_cache()
 
+    # 10. the API path
+    t = time.perf_counter()
+    apath = api_path(args.scale, min(SMALL_SCALE, args.scale), args.seed)
+    apath["path_s"] = time.perf_counter() - t
+    log(f"api path: {apath['path_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     def on_path(name, launches):
         return sum(n.get(name, 0) for n in launches.values())
 
@@ -2281,6 +2715,7 @@ def main() -> int:
                            gradient_path=path["gradient"]["launches"].get(name, 0))
         by_path["sampling_path"] = on_path(name, spath["launches"])
         by_path["community_path"] = on_path(name, cpath["launches"])
+        by_path["api_path"] = on_path(name, apath["launches"])
         extra = {"weighted": weighted[name]} if name in weighted else {}
         if name in mgp["block"]:
             extra["mg_block"] = mgp["block"][name]
@@ -2292,7 +2727,8 @@ def main() -> int:
     log(f"total: {time.perf_counter() - t_start:.1f} s after device setup")
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
                       "mg_path": mgp, "weighted_path": wpath, "scan_assemble_path": scan,
-                      "sampling_path": spath, "community_path": cpath, "card": smi}))
+                      "sampling_path": spath, "community_path": cpath, "api_path": apath,
+                      "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

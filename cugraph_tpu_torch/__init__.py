@@ -15,7 +15,9 @@ to find. The layers, from the entry points down:
   strongly connected components, core number and k-core; modularity,
   Louvain, Leiden, ECG, triangle count, k-truss, ego graph, spectral
   clustering and the clustering metrics; the link-prediction
-  coefficients (Jaccard, Sorensen, overlap, cosine).
+  coefficients (Jaccard, Sorensen, overlap, cosine); minimum and maximum
+  spanning trees and the Hungarian assignment (scipy on the host, as in
+  the JAX package); the Force Atlas 2 layout.
 - ``sampling``   uniform neighbor sampling, random walks and node2vec.
 - ``gnn``        GraphSAGE/GCN aggregation and models (``nn.Module``).
 - ``prims``      the generic per-vertex reduce, the frontier push, the
@@ -24,6 +26,14 @@ to find. The layers, from the entry points down:
   ``prims.cuda`` holds the hand-written CUDA kernels (``csrc/``):
   ``spmv_sum``, ``spmv_minplus``, ``spmm_rows``, and ``cumsum_flat`` and
   ``assemble_chunks``, which are entry points of their own.
+- ``api``        the user-facing layer (imported on its own): ``Graph``,
+  ``DiGraph`` and ``MultiGraph`` with pandas frames in and out and
+  external ids of any dtype (``core.renumber.NumberMap``), the dataframe
+  algorithm wrappers, networkx interop and ``PropertyGraph``; beside it
+  ``experimental`` (datasets, an nx-style namespace) and ``testing``
+  (the small datasets).
+- ``core.serialize`` the JAX package's npz wire format for a graph;
+  ``utils.validation`` (the expensive checks) and ``utils.timer``.
 - ``dist``       the multi-GPU layer on ``torch.distributed`` (imported on
   its own): the 2D edge partition, one process per card, MG PageRank,
   BFS, GNN aggregation and the GraphSAGE forward.
@@ -34,7 +44,7 @@ the kernels' plain versions on the CPU. Algorithms run on the graph's
 device.
 """
 
-from . import utils
+from . import prims, utils
 from .algos import (
     all_pairs_similarity,
     analyze_clustering_edge_cut,
@@ -50,13 +60,17 @@ from .algos import (
     ego_graph,
     eigenvector_centrality,
     extract_bfs_paths,
+    force_atlas2,
     hits,
+    hungarian,
     jaccard,
     k_core,
     katz_centrality,
     ktruss,
     leiden,
     louvain,
+    maximum_spanning_tree,
+    minimum_spanning_tree,
     modularity,
     overlap,
     pagerank,
@@ -75,6 +89,9 @@ from .core import (
     compute_renumber_map,
     from_edgelist,
 )
+from .core import renumber
 from .generators import mg_rmat_edgelist, rmat_chunk_source, rmat_edgelist, scramble_vertex_ids
 from .generators import simple as simple_generators
 from .sampling import node2vec, random_walks, uniform_neighbor_sample
+
+__version__ = "0.1.0"

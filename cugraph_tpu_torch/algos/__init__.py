@@ -24,3 +24,6 @@ from .community import (
 )
 from .components import strongly_connected_components, weakly_connected_components
 from .cores import core_number, k_core
+from .layout import force_atlas2
+from .linear_assignment import hungarian
+from .tree import maximum_spanning_tree, minimum_spanning_tree

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from ..utils.device import DeviceLike, as_tensor, resolve_device
+from ..utils import validation
 from ..utils.dtypes import EDGE_DTYPE, VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects
 from .symmetrize import symmetrize_edgelist
@@ -171,6 +172,11 @@ def from_edgelist(
     if num_vertices is None:
         num_vertices = hi + 1
     expects(lo >= 0 and hi < num_vertices, "vertex id out of range [0, num_vertices)")
+    # the rest of check_edgelist, the weights' O(E) test, behind the
+    # expensive-check flag as in the JAX package (the reference's
+    # do_expensive_check); the range check above runs always
+    if weight is not None and validation.expensive_checks_enabled():
+        expects(bool(torch.isfinite(weight).all()), "non-finite edge weight")
     if symmetrize:
         src, dst, weight = symmetrize_edgelist(src, dst, weight, multi=multi, device=dev)
     sym = bool(symmetrize or is_symmetric)

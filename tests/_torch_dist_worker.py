@@ -191,3 +191,24 @@ def run_rmat_shards(rank: int, shape, scale: int, num_edges: int, seed: int) -> 
             "shards": [(_np(s), _np(d)) for s, d in source()],
             "in_block": {"offsets": _np(blk.offsets), "minors": _np(blk.minors),
                          "majors": _np(blk.majors)}}
+
+
+def run_broadcast_graph(rank: int) -> dict:
+    """A graph through serialize -> deserialize -> broadcast_graph against
+    distribute_graph of the graph itself: the rank's blocks, array by
+    array."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.core.serialize import broadcast_graph, deserialize_graph, serialize_graph
+    from cugraph_tpu_torch.dist import make_mesh
+    from cugraph_tpu_torch.dist.mg_graph import distribute_graph
+
+    mesh = make_mesh(device="cpu")
+    rng = np.random.default_rng(9)
+    src, dst = rng.integers(0, 50, 300), rng.integers(0, 50, 300)
+    g = ct.from_edgelist(src, dst, rng.random(300), num_vertices=50, device="cpu")
+    got = broadcast_graph(mesh, deserialize_graph(serialize_graph(g), device="cpu"))
+    want = distribute_graph(mesh, g)
+    same = all(
+        torch.equal(getattr(getattr(got, blk), k), getattr(getattr(want, blk), k))
+        for blk in ("in_block", "out_block") for k in ("offsets", "majors", "minors", "weights"))
+    return {"shape": mesh.shape, "same": same, "edges": got.in_block.num_edges}

@@ -21,6 +21,9 @@ import torch
 
 import _torch_dist_worker as worker
 import cugraph_tpu_torch as ct
+from cugraph_tpu_torch import api, experimental
+from cugraph_tpu_torch.core.renumber import NumberMap
+from cugraph_tpu_torch.core.serialize import deserialize_graph, load_graph
 from cugraph_tpu_torch import dist as ctd
 from cugraph_tpu_torch.algos import traversal
 from cugraph_tpu_torch.gnn import GCN, GraphSAGE
@@ -57,7 +60,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "prims/cuda/scan.py", "prims/cuda/assemble.py", "core/coarsen.py",
                 "algos/link_prediction.py", "prims/random_select.py", "generators/simple.py",
                 "generators/rmat.py", "sampling/uniform_neighbor_sample.py",
-                "sampling/random_walks.py"):
+                "sampling/random_walks.py", "utils/validation.py", "utils/timer.py",
+                "core/renumber.py", "core/serialize.py", "algos/tree.py",
+                "algos/linear_assignment.py", "algos/layout.py", "api/graph.py",
+                "api/algorithms.py", "api/nx_compat.py", "api/property_graph.py",
+                "api/__init__.py", "testing/datasets.py", "experimental/datasets.py",
+                "experimental/compat_nx.py"):
         assert ROOT / "cugraph_tpu_torch" / mod in files
     bad = [
         (str(f.relative_to(ROOT)), mod)
@@ -66,6 +74,18 @@ def test_port_imports_no_jax_and_no_jax_package():
         if mod in FORBIDDEN
     ]
     assert bad == []
+
+
+def _karate_nx():
+    import networkx as nx
+
+    return nx.karate_club_graph()
+
+
+def _edge_frame():
+    import pandas as pd
+
+    return pd.DataFrame({"source": ["a", "b"], "destination": ["b", "c"]})
 
 
 ENTRY_POINTS = {
@@ -88,10 +108,26 @@ ENTRY_POINTS = {
     "mesh_2d_edgelist": lambda: ct.simple_generators.mesh_2d_edgelist(2, 2),
     "mesh_3d_edgelist": lambda: ct.simple_generators.mesh_3d_edgelist(2, 2, 2),
     "erdos_renyi_gnp_edgelist": lambda: ct.simple_generators.erdos_renyi_gnp_edgelist(8, 0.5),
+    "api.Graph.from_pandas_edgelist": lambda: api.Graph().from_pandas_edgelist(_edge_frame()),
+    "api.DiGraph": lambda: api.DiGraph(),
+    "api.MultiGraph": lambda: api.MultiGraph(),
+    "NumberMap.renumber": lambda: NumberMap.renumber(_edge_frame(), "source", "destination"),
+    "deserialize_graph": lambda: deserialize_graph(b"never read"),
+    "load_graph": lambda: load_graph("never-opened.npz"),
+    "Dataset.get_graph": lambda: experimental.karate.get_graph(),
+    "api.algorithms.pagerank(nx)": lambda: api.algorithms.pagerank(_karate_nx()),
+    "api.from_networkx": lambda: api.from_networkx(_karate_nx()),
+    "PropertyGraph.extract_subgraph": lambda: _property_graph().extract_subgraph(),
     # a mesh whose ranks sit on cards
     "mg_rmat_edgelist": lambda: ct.mg_rmat_edgelist(
         types.SimpleNamespace(shape=(1, 1), device=torch.device("cuda")), 4, 16),
 }
+
+
+def _property_graph():
+    pg = api.PropertyGraph()
+    pg.add_edge_data(_edge_frame(), ("source", "destination"))
+    return pg
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
@@ -149,6 +185,14 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
         kind(gs)
         kind(gsw, use_weight=True)
     ct.all_pairs_similarity(gs, topk=5)
+    ct.minimum_spanning_tree(gsw)
+    ct.maximum_spanning_tree(gsw)
+    ct.hungarian(gw, [0, 1, 2])
+    ct.force_atlas2(gs, max_iter=3)
+    ga = api.Graph(device="cpu").from_numpy_edgelist(src, dst)
+    api.algorithms.pagerank(ga)
+    api.algorithms.bfs(ga, int(src[0]))
+    api.algorithms.sssp(ga, int(src[0]))
     ct.uniform_neighbor_sample(gw, [0, 1, 2], [3, -1])
     ct.random_walks(gw, [0, 1], 4)
     ct.random_walks(gw, [0, 1], 4, biased=True)
@@ -164,3 +208,27 @@ def test_cpu_ranks_launch_no_kernel():
     for r in worker.spawn(worker.run_launch_counts, 2):
         assert r["shape"] == (2, 1)
         assert r["before"] == r["after"] == [0, 0, 0]
+
+
+def _exported_names(path):
+    """Names bound at the top level of a package's __init__.py: imports,
+    assignments and definitions."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+    return names
+
+
+@pytest.mark.parametrize("package, port", [("__init__.py", ct), ("api/__init__.py", api)])
+def test_every_jax_export_exists_in_the_port(package, port):
+    names = _exported_names(ROOT / "cugraph_tpu" / package)
+    assert len(names) > 3
+    if port is ct:
+        assert "__version__" in names and ct.__version__
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert missing == []
