@@ -98,6 +98,24 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    on the symmetrized scale-14 graph: finite, its peak memory far under
    the unblocked step's 20 V^2 bytes, its first 3 steps each against a
    float64 step over all pairs, 50 iterations under the profiler.
+11. Training path on the main path's unweighted s21 graph:
+   examples/train_graphsage.py's loop, NeighborLoader (1,024 seeds a
+   batch, fanouts [25, 10], shuffled) -> block -> GraphSAGE(128 -> 128 ->
+   16) -> cross-entropy over the seeds -> backward -> Adam(1e-3), 20
+   steps, each block above the dense branch, each with spmm_rows launched
+   3 times (counters set to 0 just before each step and read just after),
+   each block edge a graph edge under n_ids and the seeds first; step 1's
+   loss and gradients against float64 autograd through the plain
+   versions; 10 steps on one block lower its loss; the median step split
+   into its parts, seeds/s, a profiled step's idle share. Then
+   make_sage_train_step on its own 1 x 1 NCCL mesh (F = 128 -> 128 -> 64,
+   lr 1e-2, 3 steps of 3 spmm_rows launches): step 1's loss and update
+   against the single-device autograd step on the card, and spmm_rows
+   over the rank's out_block (the backward's product) checked and timed.
+12. MG weighted path: the weighted s21 graph on its own 1 x 1 NCCL mesh,
+   mg_sssp(0), mg_katz_centrality, mg_eigenvector_centrality and mg_hits,
+   each with its launch counts, held against the single-device sssp
+   (equal distances and predecessors), katz, eigenvector and hits.
 
 The line before the last is one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}. Without CUDA the script exits
@@ -110,6 +128,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import socket
 import statistics
 import subprocess
@@ -215,6 +234,31 @@ FA2_SCALE = 14
 FA2_CHECK_STEPS = 3
 FA2_PROFILED_STEPS = 50
 TOL_FA2_STEP_REL = 1e-5
+# the training path: examples/train_graphsage.py's loop at the main path's
+# width, 16 classes, 20 steps of Adam(lr 1e-3) on NeighborLoader blocks
+# (batch SAMPLE_STARTS, fanouts SAMPLE_FANOUTS), then 10 steps on one
+# fixed block; 3 steps of the MG make_sage_train_step
+TRAIN_CLASSES = 16
+TRAIN_STEPS = 20
+TRAIN_FIXED_STEPS = 10
+MG_TRAIN_STEPS = 3
+# the MG step on one rank against the single-device step: the same kernel
+# launches on the same CSC and CSR, the same matrix products, so only f32
+# reassociation may differ; loss relative, each update relative to
+# lr * max |g| beyond the f32 rounding of p - lr * g (2^-22 |p|)
+TOL_MG_TRAIN_REL = 1e-5
+# the trainer's step 1 against float64 autograd whose aggregation follows
+# the kernel's bf16 contract both ways (PlainSpmm): the same roundings, so
+# only the f32 sums and GEMMs may differ; loss relative, each gradient's
+# max abs error over its max |ref|. Beside it the script reads what an
+# aggregation without the bf16 rounding, and one that drops 1 in
+# TRAIN_DROP_EVERY of the edges the loss reads, would read against the
+# same reference.
+TOL_TRAIN_STEP1_REL = 1e-5
+TRAIN_DROP_EVERY = 1000
+# MG Katz and eigenvector run this many iterations on both sides (tol 0):
+# at the default tol, V * tol = 2.1 at s21 stops them after 3
+MG_CENTRALITY_ITERATIONS = 100
 
 
 def log(msg: str) -> None:
@@ -741,12 +785,14 @@ def reference_graphsage(model, g, x) -> torch.Tensor:
     return x / x.norm(dim=-1, keepdim=True).clamp(min=1e-12)
 
 
-def seeded_graphsage(seed: int):
-    """GraphSAGE(128 -> 128 -> 64, 2 layers) with weights drawn from a
-    fixed torch.Generator, uniform in +-1/sqrt(fan_in) like nn.Linear."""
+def seeded_graphsage(seed: int, out_features: int = 64):
+    """GraphSAGE(128 -> 128 -> out_features, 2 layers) with weights drawn
+    from a fixed torch.Generator, uniform in +-1/sqrt(fan_in) like
+    nn.Linear."""
     from cugraph_tpu_torch.gnn import GraphSAGE
 
-    model = GraphSAGE(128, hidden_features=128, out_features=64, num_layers=2, device=DEV)
+    model = GraphSAGE(128, hidden_features=128, out_features=out_features, num_layers=2,
+                      device=DEV)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
@@ -881,7 +927,10 @@ def gradient_path(g, feats, seed: int) -> dict:
 
 def profiled(fn, reps: int = 1):
     """``fn`` run ``reps`` times under torch.profiler: the wall seconds of
-    the runs, and {kernel, memset or copy: [launches, device µs]} over them."""
+    the runs, {kernel, memset or copy: [launches, device µs]} over them,
+    and the device's busy seconds, the union of those operations'
+    intervals (operations on two streams at once, such as NCCL's beside
+    the compute stream, count once)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -891,22 +940,27 @@ def profiled(fn, reps: int = 1):
             fn()
         sync()
         wall = time.perf_counter() - t
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                              if e.device_type == DeviceType.CUDA):
+        if stop > end:
+            busy_us, end = busy_us + stop - max(start, end), stop
     return wall, {e.key: [e.count, e.self_device_time_total]
-                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA}, busy_us / 1e6
 
 
 def warm_breakdown(phases) -> dict:
     """Each algorithm phase once more, after the counted run: its wall
     seconds warm, then its device time by kernel under torch.profiler.
-    The idle share is 1 - (device busy) / (profiled wall)."""
+    The idle share is 1 - (device busy) / (profiled wall), busy the union
+    of the device's operation intervals."""
     out = {}
     for name, fn in phases.items():
         t = time.perf_counter()
         fn()
         sync()
         warm = time.perf_counter() - t
-        wall, device = profiled(fn)
-        busy = sum(us for _, us in device.values()) / 1e6
+        wall, device, busy = profiled(fn)
         top = sorted(device.items(), key=lambda kv: -kv[1][1])[:5]
         out[name] = dict(
             warm_s=warm, profiled_s=wall, device_busy_s=busy,
@@ -1406,7 +1460,7 @@ def assemble_split(binned, chunk_src, chunk_dst, ch: int, out_rows: int, reps: i
         host[name] = statistics.median(times) * 1e6
     sync()
     call()
-    _, device = profiled(call, 50)
+    _, device, _ = profiled(call, 50)
     out = dict(host_us=host,
                device_us={k[:60]: [count / 50, us / 50] for k, (count, us) in device.items()},
                median_ms=median_ms(call, 200), back_to_back_ms=back_to_back_ms(call, 50))
@@ -2582,8 +2636,7 @@ def api_path(scale: int, small_scale: int, seed: int) -> dict:
     # the port's default start: seed 0, drawn in float64, kept in float32
     fa2_err = fa2_step_errors(g14, FA2_CHECK_STEPS)
     require(max(fa2_err) <= TOL_FA2_STEP_REL, f"fa2 steps against float64: {fa2_err} of max |pos|")
-    wall, device = profiled(lambda: ct.force_atlas2(g14, max_iter=FA2_PROFILED_STEPS))
-    busy = sum(us for _, us in device.values()) / 1e6
+    wall, device, busy = profiled(lambda: ct.force_atlas2(g14, max_iter=FA2_PROFILED_STEPS))
     top = sorted(device.items(), key=lambda kv: -kv[1][1])[:3]
     out["force_atlas2"] = dict(
         vertices=f_v, edges=g14.num_edges, iterations=500, seconds=seconds["force_atlas2"],
@@ -2592,6 +2645,413 @@ def api_path(scale: int, small_scale: int, seed: int) -> dict:
         idle_share=1 - busy / wall if busy else None, top_kernels_ms=[[k[:80], c, us / 1e3] for k, (c, us) in top])
     log(f"api hungarian, fa2: {json.dumps([out['hungarian'], out['force_atlas2']])}")
     out["seconds"], out["launches"] = seconds, launches
+    return out
+
+
+# ---------------------------------------------------------- train path
+
+
+def block_loss(model, block, feats, labels):
+    """Cross-entropy over a block's seeds (compact ids [0, num_seeds))."""
+    ids = block.n_ids.long()
+    out = model(block.graph, feats[ids])
+    n = block.num_seeds
+    return torch.nn.functional.cross_entropy(out[:n], labels[ids][:n])
+
+
+class PlainSpmm(torch.autograd.Function):
+    """SpmmRowsFunction's contract in plain torch, any dtype: Y = A r(X)
+    over the CSC, dX = A^T r(dY) over the CSR, r rounding each operand to
+    bf16 in "bf16" mode (none in "f32"), the sums in the tensors' dtype;
+    each edge scaled by its weight where ``use_weights``."""
+
+    @staticmethod
+    def forward(ctx, x, csc, csr, precision, use_weights):
+        from cugraph_tpu_torch.prims.cuda import spmm_rows_reference
+
+        ctx.csr, ctx.precision, ctx.use_weights = csr, precision, use_weights
+        return spmm_rows_reference(csc, x, precision=precision, use_weights=use_weights)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from cugraph_tpu_torch.prims.cuda import spmm_rows_reference
+
+        dx = spmm_rows_reference(ctx.csr, dy, precision=ctx.precision, use_weights=ctx.use_weights)
+        return dx, None, None, None, None
+
+
+def loss_edges(block):
+    """A block edge mask (in CSC order) of the edges the seeds' outputs
+    read: into a seed (the second layer's aggregation), or into a seed's
+    in-neighbour or a seed (the first layer's)."""
+    c, n = block.graph.csc(), block.num_seeds
+    dst, src = c.majors.long(), c.minors.long()
+    field = torch.zeros(block.graph.num_vertices, dtype=torch.bool, device=dst.device)
+    field[:n] = True
+    field[src[dst < n]] = True
+    return field[dst]
+
+
+def drop_edges(block, every: int):
+    """The block's CSC and CSR with weight 0 on 1 in ``every`` of the
+    distinct edges the loss reads (by key src * V + dst, the first of
+    them always) and 1 elsewhere: the same edges in both."""
+    g, v = block.graph, block.graph.num_vertices
+    c = g.csc()
+    keys = (c.minors.long() * v + c.majors.long())[loss_edges(block)].unique()[::every]
+
+    def masked(adj, src, dst):
+        keep = ~torch.isin(src.long() * v + dst.long(), keys)
+        return dataclasses.replace(adj, weights=keep.float())
+
+    return masked(c, c.minors, c.majors), masked(g.csr(), g.csr().majors, g.csr().minors)
+
+
+def reference_block_loss(model, block, feats, labels, precision="bf16", drop_every=0):
+    """The loss and each parameter's gradient by float64 autograd through
+    the plain versions: the model's layers by hand, the mean aggregation
+    by PlainSpmm (in "bf16", the mode the port takes on the card above
+    DENSE_MAX_VERTICES, its backward rounding each term of dY as the
+    kernel does). ``precision="f32"`` leaves the rounding out and
+    ``drop_every`` > 0 drops edges the loss reads (drop_edges): what a
+    faulty aggregation would read against the sound reference."""
+    params = {k: p.detach().double().requires_grad_() for k, p in model.named_parameters()}
+    g = block.graph
+    csc, csr = drop_edges(block, drop_every) if drop_every else (g.csc(), g.csr())
+    deg = g.in_degrees().double().clamp(min=1)[:, None]
+    ids = block.n_ids.long()
+    h = feats[ids].double()
+    for i in range(len(model.convs)):
+        def lin(part, x):
+            return x @ params[f"convs.{i}.lin_{part}.weight"].T + params[f"convs.{i}.lin_{part}.bias"]
+
+        nbr = PlainSpmm.apply(h, csc, csr, precision, bool(drop_every)) / deg
+        h = lin("self", h) + lin("nbr", nbr)
+        if i < len(model.convs) - 1:
+            h = torch.relu(h)
+    h = h / h.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+    n = block.num_seeds
+    loss = torch.nn.functional.cross_entropy(h[:n], labels[ids][:n])
+    loss.backward()
+    return loss.detach(), {k: p.grad for k, p in params.items()}
+
+
+def check_block(g, block) -> dict:
+    """Every block edge is a graph edge under n_ids (keys src * V + dst
+    found in the graph's sorted CSR keys); the seeds take compact ids
+    [0, num_seeds)."""
+    v = g.num_vertices
+    csr = g.csr()
+    keys = csr.majors.long() * v + csr.minors.long()
+    b = block.graph.csr()
+    got = block.n_ids[b.majors.long()].long() * v + block.n_ids[b.minors.long()].long()
+    pos = torch.searchsorted(keys, got).clamp(max=keys.numel() - 1)
+    require(bool((keys[pos] == got).all()), "a block edge is not a graph edge under n_ids")
+    require(torch.equal(block.n_ids[: block.num_seeds], block.seed_ids),
+            "n_ids[:num_seeds] differs from seed_ids")
+    return dict(vertices=block.graph.num_vertices, edges=block.graph.num_edges)
+
+
+def minibatch_trainer(g, seed: int) -> dict:
+    """examples/train_graphsage.py's loop at the main path's width:
+    NeighborLoader (batch SAMPLE_STARTS, fanouts SAMPLE_FANOUTS, shuffled)
+    -> block -> GraphSAGE(128 -> 128 -> TRAIN_CLASSES) -> cross-entropy
+    over the seeds -> backward -> Adam(lr 1e-3), TRAIN_STEPS steps, the
+    counters set to 0 just before each step and read just after. The
+    loader's two parts run one after the other as its iterator runs them,
+    each timed: the sample, then the block built from it."""
+    from cugraph_tpu_torch.gnn import NeighborLoader
+    from cugraph_tpu_torch.prims.cuda import spmm_rows
+    from cugraph_tpu_torch.prims.dense_spmm import DENSE_MAX_VERTICES
+
+    v = g.num_vertices
+    gen = torch.Generator(device=DEV).manual_seed(seed + 12)
+    feats = torch.randn(v, 128, generator=gen, device=DEV)
+    labels = torch.randint(0, TRAIN_CLASSES, (v,), generator=gen, device=DEV)
+    model = seeded_graphsage(seed + 13, TRAIN_CLASSES)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    loader = NeighborLoader(g, torch.arange(v, device=DEV), SAMPLE_FANOUTS,
+                            batch_size=SAMPLE_STARTS, shuffle=True, seed=seed,
+                            generator=torch.Generator(device=DEV).manual_seed(seed + 14))
+    def epochs():
+        while True:
+            yield from loader._seed_batches()
+
+    batches = epochs()
+    parts = {k: [] for k in ("sample", "block_build", "forward", "backward", "optimizer", "step")}
+    losses, launches, blocks = [], [], []
+    step1 = None
+    for step in range(TRAIN_STEPS):
+        spmm_rows.launches = 0
+        t0 = time.perf_counter()
+        batch = next(batches)
+        res = loader._sample(batch)
+        sync()
+        ta = time.perf_counter()
+        block = loader._build_block(batch, res)
+        sync()
+        t1 = time.perf_counter()
+        loss = block_loss(model, block, feats, labels)
+        sync()
+        t2 = time.perf_counter()
+        opt.zero_grad()
+        loss.backward()
+        sync()
+        t3 = time.perf_counter()
+        if step == 0:  # the gradients of step 1, before Adam moves anything
+            grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+            ref_loss, ref_grads = reference_block_loss(model, block, feats, labels)
+
+            def errors(loss, grads):
+                return dict({k: rel_err(grads[k], ref_grads[k]) for k in grads},
+                            loss=abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()))
+
+            step1 = dict(loss=loss.item(), ref_loss=ref_loss.item(), rel_err=errors(loss, grads),
+                         block_edges=block.graph.num_edges,
+                         loss_edges=int(loss_edges(block).sum()))
+            # what a faulty aggregation reads against the same reference
+            step1["faulty_reads"] = {
+                name: max(errors(*reference_block_loss(model, block, feats, labels, **kw)).values())
+                for name, kw in (("no_bf16_rounding", dict(precision="f32")),
+                                 (f"drop_1_in_{TRAIN_DROP_EVERY}_loss_edges",
+                                  dict(drop_every=TRAIN_DROP_EVERY)))}
+            t3b = time.perf_counter()
+        opt.step()
+        sync()
+        t4 = time.perf_counter()
+        launches.append(spmm_rows.launches)
+        losses.append(loss.item())
+        blocks.append(check_block(g, block))
+        require(block.graph.num_vertices > DENSE_MAX_VERTICES,
+                f"a block of {block.graph.num_vertices} vertices takes the dense branch")
+        opt_s = t4 - (t3b if step == 0 else t3)
+        for k, dt in (("sample", ta - t0), ("block_build", t1 - ta), ("forward", t2 - t1),
+                      ("backward", t3 - t2), ("optimizer", opt_s), ("step", t3 - t0 + opt_s)):
+            parts[k].append(dt)
+    log(f"train path: spmm_rows launches by step {launches}; losses {losses}")
+    require(all(n == 3 for n in launches), "a trainer step must launch spmm_rows 3 times")
+    require(all(math.isfinite(x) for x in losses), "a trainer loss is not finite")
+    for k, err in step1["rel_err"].items():
+        require(err <= TOL_TRAIN_STEP1_REL, f"step 1 {k} error {err} > {TOL_TRAIN_STEP1_REL}")
+    log(f"train path step 1 vs float64 autograd: {json.dumps(step1)}")
+
+    # 10 Adam steps on the last block lower its loss
+    spmm_rows.launches = 0
+    fixed = []
+    for _ in range(TRAIN_FIXED_STEPS):
+        loss = block_loss(model, block, feats, labels)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        fixed.append(loss.item())
+    with torch.no_grad():
+        fixed.append(block_loss(model, block, feats, labels).item())
+    sync()
+    fixed_launches = spmm_rows.launches
+    require(fixed[-1] < fixed[0], f"{TRAIN_FIXED_STEPS} Adam steps did not lower the loss: {fixed}")
+
+    batches = iter(loader)  # the loader's own iterator, for the profiled step
+    next(batches)  # the epoch's shuffle, outside the profile
+
+    def one_step():
+        loss = block_loss(model, next(batches), feats, labels)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+
+    wall, device, busy = profiled(one_step)
+    median = {k: statistics.median(x) for k, x in parts.items()}
+    out = dict(steps=TRAIN_STEPS, launches_by_step=launches, losses=losses, step1=step1,
+               fixed_block_losses=fixed, median_s=median,
+               seeds_per_s=SAMPLE_STARTS / median["step"],
+               blocks=dict(vertices=[b["vertices"] for b in blocks],
+                           edges=[b["edges"] for b in blocks]),
+               profiled_step=dict(wall_s=wall, device_busy_s=busy,
+                                  idle_share=1 - busy / wall if busy else None,
+                                  top_kernels_ms=[[k[:80], c, us / 1e3] for k, (c, us) in sorted(
+                                      device.items(), key=lambda kv: -kv[1][1])[:5]]),
+               launches={"minibatch_steps": {"spmm_rows": sum(launches)},
+                         "fixed_block_steps": {"spmm_rows": fixed_launches}})
+    log(f"train path minibatch: median s {json.dumps(median)}, "
+        f"{out['seeds_per_s']:.0f} seeds/s, profiled step {json.dumps(out['profiled_step'])}")
+    return out
+
+
+def mg_train_step(g, seed: int) -> dict:
+    """make_sage_train_step on a 1 x 1 NCCL mesh (its own group, made and
+    destroyed here), F = 128 -> 128 -> 64, lr 1e-2, MG_TRAIN_STEPS steps,
+    the counters set to 0 just before each step and read just after. Step
+    1's update is held against p - lr * g with g by autograd through the
+    single-device spmm_aggregate on the card (bf16 too), its loss against
+    the single-device loss; spmm_rows over the rank's out_block (the
+    backward's product) checked and timed against its plain version."""
+    import torch.distributed as dist
+
+    from cugraph_tpu_torch.dist import distribute_graph, initialize_distributed, make_mesh, mg_gnn
+    from cugraph_tpu_torch.dist.mg_graph import shard_vertex_values
+    from cugraph_tpu_torch.gnn import spmm_aggregate
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmm_rows_reference
+
+    v = g.num_vertices
+    lr = 1e-2
+    gen = torch.Generator(device=DEV).manual_seed(seed + 15)
+    params = mg_gnn.init_sage_params(gen, 128, 128, 64, device=DEV)
+    feats_g = torch.randn(v, 128, generator=gen, device=DEV)
+    targets_g = torch.randn(v, 64, generator=gen, device=DEV)
+
+    # the single-device step-1 loss and gradients
+    leaves = {k: p.clone().requires_grad_() for k, p in params.items()}
+    agg = spmm_aggregate(g, feats_g, op="mean")
+    h = torch.relu(feats_g @ leaves["w_self1"] + agg @ leaves["w_nbr1"])
+    out = h @ leaves["w_self2"] + spmm_aggregate(g, h, op="mean") @ leaves["w_nbr2"]
+    sg_loss = ((out - targets_g) ** 2).sum() / v
+    sg_grads = dict(zip(leaves, torch.autograd.grad(sg_loss, list(leaves.values()))))
+    dy = torch.randn(v, 128, generator=gen, device=DEV)  # a dY of the second aggregation
+    del agg, h, out
+
+    seconds = {}
+    t = time.perf_counter()
+    initialize_distributed(device=DEV, init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), device=DEV)
+        for group in (None, mesh.row_group, mesh.col_group):
+            dist.all_reduce(torch.zeros(1, device=DEV), group=group)
+        sync()
+        seconds["setup"] = time.perf_counter() - t
+        t = time.perf_counter()
+        mgg = distribute_graph(mesh, g)
+        sync()
+        seconds["mg_graph"] = time.perf_counter() - t
+        feats, targets = shard_vertex_values(mesh, mgg, feats_g), shard_vertex_values(mesh, mgg, targets_g)
+        step = mg_gnn.make_sage_train_step(mesh, mgg, lr=lr)
+        launches, losses, step_s, p = [], [], [], params
+        for i in range(MG_TRAIN_STEPS):
+            spmm_rows.launches = 0
+            t = time.perf_counter()
+            new, loss = step(p, feats, targets)
+            sync()
+            step_s.append(time.perf_counter() - t)
+            launches.append(spmm_rows.launches)
+            losses.append(loss.item())
+            if i == 0:
+                upd_err = {}
+                for k in new:
+                    diff = (new[k] - (params[k] - lr * sg_grads[k])).abs()
+                    excess = (diff - 2.0**-22 * params[k].abs()).clamp(min=0).max()
+                    upd_err[k] = (excess / (lr * sg_grads[k].abs().max())).item()
+            p = new
+        log(f"mg train: spmm_rows launches by step {launches}; losses {losses}; seconds {step_s}")
+        require(all(n == 3 for n in launches), "an MG train step must launch spmm_rows 3 times")
+        require(all(math.isfinite(x) for x in losses), "an MG train loss is not finite")
+        loss_rel = abs(losses[0] - sg_loss.item()) / abs(sg_loss.item())
+        require(loss_rel <= TOL_MG_TRAIN_REL, f"MG loss {losses[0]} vs single-device {sg_loss.item()}")
+        for k, err in upd_err.items():
+            require(err <= TOL_MG_TRAIN_REL, f"MG step 1 update of {k}: error {err} of lr * max |g|")
+        wall, device, busy = profiled(lambda: step(p, feats, targets))
+
+        # the backward's product: spmm_rows over out_block on a dY
+        blk = mgg.out_block
+        rows, e = blk.num_majors, blk.num_edges
+        n_dst = int((mgg.in_block.degrees() > 0).sum())  # dY rows the data needs
+        lib = sparse_csr(blk)
+        b_ms, b_by = bound(4 * (rows + 1) + 4 * e + 4 * 128 * n_dst + 4 * 128 * rows,
+                           2 * e * 128)
+        out_block = dict(
+            max_abs_err=check_spmm_rows(blk, dy, "bf16"), mode="bf16",
+            ms=median_ms(lambda: spmm_rows(blk, dy, precision="bf16"), 10),
+            plain_ms=median_ms(lambda: spmm_rows_reference(blk, dy, precision="bf16"), 3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: lib @ dy, 10),
+            block=dict(majors=rows, minors=blk.num_minors, edges=e, needed_dy_rows=n_dst))
+    finally:
+        dist.destroy_process_group()
+    res = dict(seconds=seconds, step_s=step_s, losses=losses, launches_by_step=launches,
+               sg_loss=sg_loss.item(), loss_rel_err=loss_rel, update_rel_err=upd_err,
+               warm_step=dict(wall_s=wall, device_busy_s=busy,
+                              idle_share=1 - busy / wall if busy else None),
+               out_block=out_block, launches={"mg_train_steps": {"spmm_rows": sum(launches)}})
+    log(f"mg train checks: {json.dumps({k: res[k] for k in ('loss_rel_err', 'update_rel_err', 'warm_step', 'out_block')})}")
+    return res
+
+
+def train_path(g, seed: int) -> dict:
+    """Phase 11: the minibatch trainer, then the MG train step."""
+    t = time.perf_counter()
+    out = dict(minibatch=minibatch_trainer(g, seed))
+    out["mg"] = mg_train_step(g, seed)
+    out["launches"] = dict(out["minibatch"]["launches"], **out["mg"]["launches"])
+    out["path_s"] = time.perf_counter() - t
+    log(f"train path: {out['path_s']:.1f} s, launches {json.dumps(out['launches'])}")
+    return out
+
+
+# ---------------------------------------------------- MG weighted path
+
+
+def mg_weighted_path(g, seed: int) -> dict:
+    """Phase 12: the weighted s21 graph on a 1 x 1 NCCL mesh (its own
+    group): mg_sssp(0), mg_katz_centrality, mg_eigenvector_centrality and
+    mg_hits, each with the counters set to 0 just before and read just
+    after, against the single-device results: SSSP distances and
+    predecessors equal, the centralities within TOL_CENTRALITY_REL. Katz
+    and eigenvector run MG_CENTRALITY_ITERATIONS iterations on both
+    sides."""
+    import torch.distributed as dist
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import distribute_graph, initialize_distributed, make_mesh, mg_algos
+    from cugraph_tpu_torch.dist.mg_graph import unshard_vertex_values
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    alpha = 1.0 / (int(g.out_degrees().max()) + 1)  # the single-device default
+    fixed = dict(max_iterations=MG_CENTRALITY_ITERATIONS, tol=0.0)
+    seconds, launches, results = {}, {}, {}
+    initialize_distributed(device=DEV, init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), device=DEV)
+        for group in (None, mesh.row_group, mesh.col_group):
+            dist.all_reduce(torch.zeros(1, device=DEV), group=group)
+        mgg = distribute_graph(mesh, g)
+        phases = {
+            "mg_sssp": lambda: mg_algos.mg_sssp(mesh, mgg, 0),
+            "mg_katz": lambda: mg_algos.mg_katz_centrality(mesh, mgg, alpha, **fixed),
+            "mg_eigenvector": lambda: mg_algos.mg_eigenvector_centrality(mesh, mgg, **fixed),
+            "mg_hits": lambda: mg_algos.mg_hits(mesh, mgg),
+        }
+        for name, fn in phases.items():
+            for c in counters.values():
+                c.launches = 0
+            t = time.perf_counter()
+            res = fn()
+            sync()
+            seconds[name] = time.perf_counter() - t
+            launches[name] = {n: c.launches for n, c in counters.items()}
+            res = res if isinstance(res, tuple) else (res,)
+            results[name] = tuple(unshard_vertex_values(mgg, r) for r in res)
+        log(f"mg weighted path seconds: {json.dumps(seconds)}")
+        log(f"mg weighted path launches: {json.dumps(launches)}")
+        require(launches["mg_sssp"]["spmv_minplus"] > 0, "spmv_minplus was not launched by mg_sssp")
+        for name in ("mg_katz", "mg_eigenvector", "mg_hits"):
+            require(launches[name]["spmv_sum"] > 0, f"spmv_sum was not launched by {name}")
+        warm = warm_breakdown(phases)
+    finally:
+        dist.destroy_process_group()
+    out = dict(seconds=seconds, launches=launches, warm=warm)
+    dist_, pred = results["mg_sssp"]
+    rd, rp = ct.sssp(g, 0)
+    require(torch.equal(dist_, rd), "mg_sssp distances differ from the single-device sssp")
+    require(torch.equal(pred, rp), "mg_sssp predecessors differ from the single-device sssp")
+    out["sssp"] = dict(reached=int(torch.isfinite(rd).sum()), rounds=launches["mg_sssp"]["spmv_minplus"])
+    refs = {"mg_katz": (ct.katz_centrality(g, alpha, **fixed)[0],),
+            "mg_eigenvector": (ct.eigenvector_centrality(g, **fixed)[0],),
+            "mg_hits": ct.hits(g)[:2]}
+    for name, ref in refs.items():
+        err = max(rel_err(a, b.double()) for a, b in zip(results[name], ref))
+        require(err <= TOL_CENTRALITY_REL, f"{name} error {err} > {TOL_CENTRALITY_REL}")
+        out[name] = dict(rel_err=err, spmv_sum=launches[name]["spmv_sum"])
+    log(f"mg weighted path checks: {json.dumps({k: out[k] for k in ('sssp', *refs)})}")
     return out
 
 
@@ -2699,6 +3159,19 @@ def main() -> int:
     log(f"api path: {apath['path_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # 11. the training path, on the main path's unweighted graph
+    g = rmat_graph(args.scale, args.seed)
+    tpath = train_path(g, args.seed)
+    del g
+    torch.cuda.empty_cache()
+
+    # 12. the MG weighted path
+    t = time.perf_counter()
+    mwpath = mg_weighted_path(rmat_graph(args.scale, args.seed, weighted=True), args.seed)
+    mwpath["path_s"] = time.perf_counter() - t
+    log(f"mg weighted path: {mwpath['path_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     def on_path(name, launches):
         return sum(n.get(name, 0) for n in launches.values())
 
@@ -2716,9 +3189,13 @@ def main() -> int:
         by_path["sampling_path"] = on_path(name, spath["launches"])
         by_path["community_path"] = on_path(name, cpath["launches"])
         by_path["api_path"] = on_path(name, apath["launches"])
+        by_path["train_path"] = on_path(name, tpath["launches"])
+        by_path["mg_weighted_path"] = on_path(name, mwpath["launches"])
         extra = {"weighted": weighted[name]} if name in weighted else {}
         if name in mgp["block"]:
             extra["mg_block"] = mgp["block"][name]
+        if name == "spmm_rows":
+            extra["out_block"] = tpath["mg"]["out_block"]
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             also_replaces=ALSO_REPLACES[name], launches=launches,
@@ -2728,7 +3205,7 @@ def main() -> int:
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
                       "mg_path": mgp, "weighted_path": wpath, "scan_assemble_path": scan,
                       "sampling_path": spath, "community_path": cpath, "api_path": apath,
-                      "card": smi}))
+                      "train_path": tpath, "mg_weighted_path": mwpath, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..algos.traversal import INVALID_DISTANCE, INVALID_VERTEX, MAX_VERTICES
-from ..prims.reduce_ops import ANY, MAXIMUM, PLUS
-from ..utils.device import as_tensor
+from ..prims.reduce_ops import ANY, MAXIMUM, MINIMUM, PLUS
+from ..utils.device import as_tensor, resolve_device
 from ..utils.dtypes import VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects
 from . import mg_prims
@@ -27,10 +27,23 @@ from .mg_graph import MGGraph, shard_vertex_values
 
 
 def _local_ids(mesh: Mesh2D, mgg: MGGraph) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global ids (int64) of this rank's range, and which are < V."""
+    """Global ids (int64) of this rank's range, and which are < V, on the
+    mesh's device (a card mesh raises without CUDA)."""
     lo, _ = mgg.partition.range_of(mesh.i, mesh.j)
-    gid = torch.arange(lo, lo + mgg.vp, dtype=torch.int64, device=mesh.device)
+    gid = torch.arange(lo, lo + mgg.vp, dtype=torch.int64, device=resolve_device(mesh.device))
     return gid, gid < mgg.num_vertices
+
+
+def _source_mask(mesh: Mesh2D, mgg: MGGraph, sources) -> torch.Tensor:
+    """This rank's (vp,) bool slice of the global source mask; the mesh's
+    device must be there (a card mesh raises without CUDA)."""
+    dev = resolve_device(mesh.device)
+    v = mgg.num_vertices
+    sources = as_tensor(sources, torch.int64, dev).reshape(-1)
+    expects(bool(((sources >= 0) & (sources < v)).all()), "source vertex out of range")
+    src_mask = torch.zeros(v, dtype=torch.bool, device=dev)
+    src_mask[sources] = True
+    return shard_vertex_values(mesh, mgg, src_mask)
 
 
 def mg_out_weight_sums(mesh: Mesh2D, mgg: MGGraph) -> torch.Tensor:
@@ -126,11 +139,7 @@ def mg_bfs(
     where a frontier in-neighbour exists and is then the smallest one,
     the predecessor. Above that, the frontier push with the same rule."""
     v = mgg.num_vertices
-    sources = as_tensor(sources, torch.int64, mesh.device).reshape(-1)
-    expects(bool(((sources >= 0) & (sources < v)).all()), "source vertex out of range")
-    src_mask = torch.zeros(v, dtype=torch.bool, device=mesh.device)
-    src_mask[sources] = True
-    frontier = shard_vertex_values(mesh, mgg, src_mask)
+    frontier = _source_mask(mesh, mgg, sources)
     limit = int(depth_limit) if depth_limit is not None else v
     dense = v <= MAX_VERTICES
     gid, vmask = _local_ids(mesh, mgg)
@@ -161,6 +170,137 @@ def mg_bfs(
         frontier = new
         depth += 1
     return dist, pred
+
+
+# ---------------------------------------------------------------------------
+# SSSP: the sweep loop of algos/traversal.py (ref sssp_impl.cuh)
+# ---------------------------------------------------------------------------
+
+
+def mg_sssp(
+    mesh: Mesh2D, mgg: MGGraph, source, cutoff: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns this rank's (distances f32, predecessors int32), (vp,) each;
+    unreachable vertices, and those beyond ``cutoff``, get +inf and -1.
+
+    Bellman-Ford over full min-plus sweeps: each round is one
+    ``per_v_incoming_sorted_min`` with the weights (``spmv_minplus`` over
+    the rank's ``in_block`` on a card, a MIN merge over ``col_group``;
+    x + 1 on an unweighted graph), until no distance changes anywhere.
+    Predecessors follow the single-device sweep's rule: the smallest src
+    among the tree edges, dist[s] + w == dist[d], sources excluded. The
+    JAX package's XLA branch relaxes the frontier's edges instead; both
+    reach the same distances."""
+    v = mgg.num_vertices
+    src_mask = _source_mask(mesh, mgg, source)
+    _, vmask = _local_ids(mesh, mgg)
+    c = float("inf") if cutoff is None else float(cutoff)
+    inf = float("inf")
+    weighted = mgg.weighted
+    dist = torch.where(src_mask, 0.0, inf).to(WEIGHT_DTYPE)
+    changed, it = 1, 0
+    while changed > 0 and it < v:
+        relax = mg_prims.per_v_incoming_sorted_min(mesh, mgg, dist, use_weights=weighted)
+        if not weighted:
+            relax = relax + 1.0
+        relax = torch.where(relax <= c, relax, inf)
+        new = torch.minimum(dist, relax)
+        changed = int(mg_prims.transform_reduce_v(mesh, (new < dist).to(torch.int32)))
+        dist, it = new, it + 1
+
+    def tree_src(s, d, sv, dv, w):
+        on_tree = torch.isfinite(dv) & (sv + (1.0 if w is None else w) == dv)
+        return torch.where(on_tree, s, v)
+
+    pred = mg_prims.per_v_transform_reduce_incoming_e(
+        mesh, mgg, tree_src, reduce_op=MINIMUM, src_values=dist, dst_values=dist)
+    keep = (pred < v) & ~src_mask & vmask
+    return dist, torch.where(keep, pred, INVALID_VERTEX).to(VERTEX_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Katz, eigenvector, HITS: the loops of algos/centrality.py and
+# algos/link_analysis.py (ref katz_centrality_impl.cuh,
+# eigenvector_centrality_impl.cuh, hits_impl.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _global_max(local: torch.Tensor) -> torch.Tensor:
+    m = local.max()
+    torch.distributed.all_reduce(m, op=torch.distributed.ReduceOp.MAX)
+    return m
+
+
+def mg_katz_centrality(
+    mesh: Mesh2D,
+    mgg: MGGraph,
+    alpha: float,
+    beta: float = 1.0,
+    max_iterations: int = 1000,
+    tol: float = 1.0e-6,
+) -> torch.Tensor:
+    """This rank's (vp,) Katz centralities, x = alpha * A^T x + beta from
+    x = 0, L2-normalized over the graph. The loop runs while the global L1
+    change exceeds V * tol; each iteration is one ``per_v_incoming_sorted``
+    (the weighted ``spmv_sum`` over the rank's ``in_block`` on a card)."""
+    v = mgg.num_vertices
+    _, vmask = _local_ids(mesh, mgg)
+    x = torch.zeros(mgg.vp, dtype=WEIGHT_DTYPE, device=vmask.device)
+    diff, it = float("inf"), 0
+    while diff > v * tol and it < max_iterations:
+        new = alpha * mg_prims.per_v_incoming_sorted(mesh, mgg, x) + beta
+        new = torch.where(vmask, new, 0.0)
+        diff = float(mg_prims.transform_reduce_v(mesh, (new - x).abs()))
+        x, it = new, it + 1
+    norm2 = mg_prims.transform_reduce_v(mesh, x * x)
+    return x / torch.sqrt(norm2).clamp(min=1e-30)
+
+
+def mg_eigenvector_centrality(
+    mesh: Mesh2D, mgg: MGGraph, max_iterations: int = 1000, tol: float = 1.0e-6
+) -> torch.Tensor:
+    """This rank's (vp,) eigenvector centralities: power iteration on
+    A^T + I from x = 1/V, L2-normalized over the graph each step, while
+    the global L1 change exceeds V * tol."""
+    v = mgg.num_vertices
+    _, vmask = _local_ids(mesh, mgg)
+    x = torch.where(vmask, 1.0 / v, 0.0).to(WEIGHT_DTYPE)
+    diff, it = float("inf"), 0
+    while diff > v * tol and it < max_iterations:
+        new = torch.where(vmask, mg_prims.per_v_incoming_sorted(mesh, mgg, x) + x, 0.0)
+        norm2 = mg_prims.transform_reduce_v(mesh, new * new)
+        new = new / torch.sqrt(norm2).clamp(min=1e-30)
+        diff = float(mg_prims.transform_reduce_v(mesh, (new - x).abs()))
+        x, it = new, it + 1
+    return x
+
+
+def mg_hits(
+    mesh: Mesh2D, mgg: MGGraph, max_iterations: int = 100, tol: float = 1.0e-5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's (vp,) (hubs, authorities). Each iteration pulls
+    authorities from hubs (``per_v_incoming_sorted``, the weighted
+    ``spmv_sum`` over ``in_block``) and pushes hubs back
+    (``per_v_outgoing_sorted``, over ``out_block``, merged over
+    ``row_group``), each divided by its global max (floored at 1e-30); the
+    loop runs while the global L1 change of the hubs exceeds ``tol`` (not
+    V * tol: the JAX package's and the single-device rule). Both vectors
+    end divided by their global sums."""
+    v = mgg.num_vertices
+    _, vmask = _local_ids(mesh, mgg)
+    h = torch.where(vmask, 1.0 / v, 0.0).to(WEIGHT_DTYPE)
+    a = torch.zeros_like(h)
+    diff, it = float("inf"), 0
+    while diff > tol and it < max_iterations:
+        a = mg_prims.per_v_incoming_sorted(mesh, mgg, h)
+        a = a / _global_max(a).clamp(min=1e-30)
+        h_new = mg_prims.per_v_outgoing_sorted(mesh, mgg, a)
+        h_new = h_new / _global_max(h_new).clamp(min=1e-30)
+        diff = float(mg_prims.transform_reduce_v(mesh, (h_new - h).abs()))
+        h, it = h_new, it + 1
+    hs = mg_prims.transform_reduce_v(mesh, h)
+    as_ = mg_prims.transform_reduce_v(mesh, a)
+    return h / hs.clamp(min=1e-30), a / as_.clamp(min=1e-30)
 
 
 # ---------------------------------------------------------------------------

@@ -172,14 +172,59 @@ def per_v_incoming_sorted(mesh: Mesh2D, mgg: MGGraph, msg: torch.Tensor) -> torc
     return _merge_dst_partials(mesh, y, PLUS)
 
 
-def per_v_incoming_sorted_min(mesh: Mesh2D, mgg: MGGraph, msg: torch.Tensor) -> torch.Tensor:
-    """y[d] = min over the in-edges of d of msg[s], +inf where there is
-    none (edge weights ignored, the BFS sweep): unweighted
-    ``spmv_minplus`` over the rank's ``in_block``, then a MIN merge over
-    ``col_group``. Counterpart of the JAX package's min-plus sorted
-    layouts; the port has none."""
-    y = spmv_minplus(mgg.in_block, gather_src_values(mesh, msg), use_weights=False)
+def per_v_incoming_sorted_min(
+    mesh: Mesh2D, mgg: MGGraph, msg: torch.Tensor, *, use_weights: bool = False
+) -> torch.Tensor:
+    """y[d] = min over the in-edges of d of msg[s] (+ w with
+    ``use_weights``), +inf where there is none: ``spmv_minplus`` over the
+    rank's ``in_block``, then a MIN merge over ``col_group``. Unweighted
+    it is the BFS sweep; weighted, the SSSP relaxation. Counterpart of the
+    JAX package's min-plus sorted layouts; the port has none."""
+    y = spmv_minplus(mgg.in_block, gather_src_values(mesh, msg), use_weights=use_weights)
     return _merge_dst_partials(mesh, y, MINIMUM)
+
+
+def per_v_outgoing_sorted(mesh: Mesh2D, mgg: MGGraph, msg: torch.Tensor) -> torch.Tensor:
+    """y[s] = sum over the out-edges of s of w * msg[d], for this rank's
+    range: ``spmv_sum`` over the rank's ``out_block`` on the gathered dst
+    ranges of its blocks, then the merge over ``row_group`` (HITS' hub
+    step). It computes the function of the JAX package's
+    ``per_v_outgoing_sorted`` (transposed sorted layouts)."""
+    x_blocks = gather_dst_values(mesh, msg)
+    y = spmv_sum(mgg.out_block, x_blocks.reshape((-1,) + tuple(x_blocks.shape[2:])))
+    return _merge_src_partials(mesh, y, PLUS)
+
+
+def _block_spmm(adj, x: torch.Tensor) -> torch.Tensor:
+    return spmm_rows(adj, x, precision="bf16", use_weights=False)
+
+
+class MGSpmmFunction(torch.autograd.Function):
+    """The rank's share of Y = A X over the 2D partition, differentiable in
+    X. Forward: all-gather X over ``row_group`` (the column span, R*vp
+    rows), ``spmm_rows`` over ``in_block``, reduce-scatter (SUM) over
+    ``col_group``. Backward, each step's adjoint in reverse order:
+    all-gather dY over ``col_group`` (the C dst ranges of the blocks, C*vp
+    rows), ``spmm_rows`` over ``out_block`` (the same edges keyed by their
+    span src), reduce-scatter (SUM) over ``row_group``. The adjoints line
+    up because ``all_gather_rows`` concatenates in group-rank order and
+    ``reduce_scatter_rows`` hands slice k to group rank k, the order of the
+    span index (i*vp + k) and of the block index (b*vp + k). Both products
+    take the bf16 contract (operands rounded to bf16, f32 sums), as
+    ``SpmmRowsFunction`` does on one device; weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mgg):
+        ctx.mesh, ctx.mgg = mesh, mgg
+        y = _block_spmm(mgg.in_block, gather_src_values(mesh, x))
+        return _merge_dst_partials(mesh, y, PLUS)
+
+    @staticmethod
+    def backward(ctx, dy):
+        mesh, mgg = ctx.mesh, ctx.mgg
+        dy_blocks = all_gather_rows(dy.contiguous(), mesh.col_group)
+        dx_span = _block_spmm(mgg.out_block, dy_blocks)
+        return _merge_src_partials(mesh, dx_span, PLUS), None, None
 
 
 def per_v_incoming_sorted_spmm(mesh: Mesh2D, mgg: MGGraph, feats: torch.Tensor) -> torch.Tensor:
@@ -190,12 +235,9 @@ def per_v_incoming_sorted_spmm(mesh: Mesh2D, mgg: MGGraph, feats: torch.Tensor) 
     function of the JAX package's multi-stream bf16-pair pipeline
     (``spmv2.py`` ``_expand_multi_call``, ``_slab_benes_multi_call``,
     ``_sort_reduce_multi_call``); the port has no sorted layout, and the
-    name marks the counterpart. It has no backward yet: it raises when
-    ``feats`` asks for a gradient, which would otherwise be lost."""
-    if torch.is_grad_enabled() and feats.requires_grad:
-        raise NotImplementedError(
-            "per_v_incoming_sorted_spmm has no backward: run it under torch.no_grad()"
-        )
-    x_span = gather_src_values(mesh, feats.to(torch.float32))
-    y = spmm_rows(mgg.in_block, x_span, precision="bf16", use_weights=False)
-    return _merge_dst_partials(mesh, y, PLUS).to(feats.dtype)
+    name marks the counterpart. Differentiable in ``feats``
+    (``MGSpmmFunction``): its backward runs ``spmm_rows`` over the rank's
+    ``out_block``; every rank must then run the backward, as it ran the
+    forward."""
+    y = MGSpmmFunction.apply(feats.to(torch.float32), mesh, mgg)
+    return y.to(feats.dtype)

@@ -141,6 +141,25 @@ def run_mesh(rank: int, shape, cases: dict) -> dict:
             both(f"spmm_{op}", mg_algos.mg_spmm_aggregate(mesh, mgg, feats, op=op))
         params = mg_gnn.sage_params_from_jax(c["params"], device="cpu")
         both("sage", mg_gnn.mg_sage_forward(mesh, mgg, params, feats))
+        for kind in ("int", "float"):  # dX of the aggregation for dY = r
+            x = feats.clone().requires_grad_()
+            dy = shard_vertex_values(mesh, mgg, c[f"dy_{kind}"])
+            (mg_prims.per_v_incoming_sorted_spmm(mesh, mgg, x) * dy).sum().backward()
+            both(f"dx_{kind}", x.grad)
+        step = mg_gnn.make_sage_train_step(mesh, mgg, lr=1e-2)
+        targets = shard_vertex_values(mesh, mgg, c["targets"])
+        r["train"] = []
+        for _ in range(2):
+            params, loss = step(params, feats, targets)
+            r["train"].append((float(loss), {k: _np(p) for k, p in params.items()}))
+        dist_, pred = mg_algos.mg_sssp(mesh, mgg, c["sources"][0])
+        both("sssp_dist", dist_)
+        both("sssp_pred", pred)
+        both("katz", mg_algos.mg_katz_centrality(mesh, mgg, c["katz_alpha"]))
+        both("eigenvector", mg_algos.mg_eigenvector_centrality(mesh, mgg))
+        hubs, auths = mg_algos.mg_hits(mesh, mgg)
+        both("hits_hubs", hubs)
+        both("hits_authorities", auths)
         for sym in (False, True) if c.get("chunks") is not None else ():
             mgc, new_to_old = distribute_edgelist_chunks(
                 mesh, c["chunks"], num_vertices=v, renumber=True, symmetrize=sym)
@@ -172,6 +191,12 @@ def run_launch_counts(rank: int) -> dict:
         mg_algos.mg_spmm_aggregate(mesh, mgg, feats, op=op)
     params = mg_gnn.init_sage_params(torch.Generator().manual_seed(0), 8, 8, 4, device="cpu")
     mg_gnn.mg_sage_forward(mesh, mgg, params, feats)
+    mg_gnn.make_sage_train_step(mesh, mgg)(params, feats, feats[:, :4])
+    mgw = distribute_edgelist(mesh, src, dst, rng.random(200), num_vertices=40)
+    mg_algos.mg_sssp(mesh, mgw, 0)
+    mg_algos.mg_katz_centrality(mesh, mgw, 0.05, max_iterations=3)
+    mg_algos.mg_eigenvector_centrality(mesh, mgw, max_iterations=3)
+    mg_algos.mg_hits(mesh, mgw, max_iterations=3)
     return {"before": before, "after": _launches(), "shape": mesh.shape}
 
 
@@ -212,3 +237,27 @@ def run_broadcast_graph(rank: int) -> dict:
         torch.equal(getattr(getattr(got, blk), k), getattr(getattr(want, blk), k))
         for blk in ("in_block", "out_block") for k in ("offsets", "majors", "minors", "weights"))
     return {"shape": mesh.shape, "same": same, "edges": got.in_block.num_edges}
+
+
+def run_mg_spmm_gradient(rank: int) -> dict:
+    """dX of the MG aggregation on a 1 x 1 mesh, and of the single-device
+    one (``SpmmRowsFunction``) on the same graph, for one dY."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import distribute_graph, make_mesh, mg_prims
+    from cugraph_tpu_torch.prims.cuda import SpmmRowsFunction
+
+    mesh = make_mesh((1, 1), device="cpu")
+    rng = np.random.default_rng(2)
+    src, dst = rng.integers(0, 30, 150), rng.integers(0, 30, 150)
+    g = ct.from_edgelist(src, dst, num_vertices=30, device="cpu")
+    mgg = distribute_graph(mesh, g)
+    feats = torch.from_numpy(rng.random((30, 6)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(30, 6)).astype(np.float32))
+    out = {}
+    for name, fn in (("mg", lambda x: mg_prims.per_v_incoming_sorted_spmm(mesh, mgg, x)),
+                     ("sg", lambda x: SpmmRowsFunction.apply(x, g.csc(), g.csr(), "bf16", False))):
+        x = feats.clone().requires_grad_()
+        y = fn(x)
+        (y * dy).sum().backward()
+        out[name] = (_np(y), _np(x.grad))
+    return out

@@ -22,6 +22,21 @@ R-MAT edge list at scale 9 (multi-edges kept). Tolerances:
   bf16 ``spmm_rows_reference`` (f32 summation order only); max is exact;
 - ``mg_sage_forward``: within 2e-2 of the JAX package's on the same
   carried parameters (bf16 aggregation against f32).
+- the MG aggregation's backward (``MGSpmmFunction``): dX for an integer
+  dY in {-1, 0, 1} equal to autograd through the global bf16
+  ``spmm_rows_reference`` (every sum an integer under 256, exact in f32
+  and bf16); for a normal dY, within 1e-5 of each row's sum of |terms|
+  of the global bf16 product over the CSR, and within 2^-7 + 1e-5 of
+  autograd through the plain version (autograd rounds the summed row to
+  bf16, the kernel each term of dY);
+- ``make_sage_train_step``, two steps: each step's update p_new - p_old
+  within (2^-7 + 1e-5) of lr * max |g| of the JAX package's update, leaf
+  by leaf (its XLA branch is f32, the port follows the bf16 contract:
+  2^-8 on each aggregation operand), the loss within 2e-2 of JAX's; loss
+  and parameters within 1e-5 of the port's own 1 x 1 run;
+- ``mg_sssp``: distances equal to the JAX package's, predecessors to the
+  single-device sweep's rule (the smallest src among the tree edges);
+- Katz, eigenvector and HITS: within 1e-5 of the JAX package's.
 """
 
 import functools
@@ -50,11 +65,13 @@ from cugraph_tpu_torch.gnn import spmm_aggregate
 from cugraph_tpu_torch.prims.cuda import spmm_rows_reference
 
 SHAPES = [(1, 1), (2, 1), (1, 2), (2, 2)]
+TRAIN_SHAPES = [(1, 1), (2, 1), (1, 2)]
 GRAPHS = ["karate", "rmat"]
 F, HIDDEN, OUT = 16, 16, 8
 BF16_REL = 2.0 ** -8  # bf16's largest relative rounding error
 
 shapes = pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+train_shapes = pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 graphs = pytest.mark.parametrize("graph", GRAPHS)
 
 
@@ -88,6 +105,10 @@ def _cases():
         c["feats"] = rng.random((v, F)).astype(np.float32)
         params = jax_mg_gnn.init_sage_params(jax.random.PRNGKey(i), F, HIDDEN, OUT)
         c["params"] = {k: np.asarray(a) for k, a in params.items()}
+        c["dy_int"] = rng.integers(-1, 2, (v, F)).astype(np.float32)
+        c["dy_float"] = rng.normal(size=(v, F)).astype(np.float32)
+        c["targets"] = rng.random((v, OUT)).astype(np.float32)
+        c["katz_alpha"] = 0.05 if c["w"] is None else 0.02
     return cases
 
 
@@ -375,3 +396,111 @@ def test_spmm_matches_jax_sorted_engine():
 def test_no_kernel_launch_on_cpu_ranks(shape):
     for r in _port(shape):
         assert r["launches_before"] == r["launches_after"] == [0, 0, 0]
+
+
+# ------------------------------------------------------- training and more
+
+
+@train_shapes
+@graphs
+def test_mg_spmm_backward(shape, graph):
+    """dX of sum(per_v_incoming_sorted_spmm(X) * dY): the all-gather of dY
+    over col_group, spmm_rows over out_block, the reduce-scatter over
+    row_group, against autograd through the global plain version."""
+    c = _cases()[graph]
+    csc, csr = _sg_graph(graph).csc(), _sg_graph(graph).csr()
+
+    def autograd(dy):
+        x = torch.from_numpy(c["feats"]).requires_grad_()
+        y = spmm_rows_reference(csc, x, precision="bf16", use_weights=False)
+        (y * torch.from_numpy(dy)).sum().backward()
+        return x.grad.numpy()
+
+    np.testing.assert_array_equal(_global(shape, graph, "dx_int"), autograd(c["dy_int"]))
+    got, dy = _global(shape, graph, "dx_float"), torch.from_numpy(c["dy_float"])
+    scale = spmm_rows_reference(csr, dy.abs(), precision="bf16", use_weights=False).numpy()
+    product = spmm_rows_reference(csr, dy, precision="bf16", use_weights=False).numpy()
+    assert (np.abs(got - product) <= 1e-5 * scale).all()
+    assert (np.abs(got - autograd(c["dy_float"])) <= (2.0**-7 + 1e-5) * scale).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_train(shape, graph):
+    mesh, _, mgg = _jax_graph(shape, graph)
+    c = _cases()[graph]
+    step = jax_mg_gnn.make_sage_train_step(mesh, mgg, lr=1e-2)
+    params = {k: jnp.asarray(a) for k, a in c["params"].items()}
+    feats, targets = jax_shard(mesh, mgg, c["feats"]), jax_shard(mesh, mgg, c["targets"])
+    out = []
+    for _ in range(2):
+        params, loss = step(params, feats, targets)
+        out.append((float(loss), {k: np.asarray(a) for k, a in params.items()}))
+    return out
+
+
+@train_shapes
+@graphs
+def test_sage_train_step_matches_jax(shape, graph):
+    """Each step's update dp = p_new - p_old, leaf by leaf, within the bf16
+    contract's bound of JAX's: (2^-7 + 1e-5) of lr * max |g_JAX| (JAX's
+    own max |dp|), beyond the f32 rounding of p - lr * g (2^-22 |p|)."""
+    start = (None, _cases()[graph]["params"])
+    want = [start] + _jax_train(shape, graph)
+    alone = _rank((1, 1), 0, 0)[graph]["train"]
+    for r in _port(shape):
+        got = [start] + r[graph]["train"]
+        for s in range(1, len(got)):
+            (loss, params), (jloss, jparams) = got[s], want[s]
+            assert np.isfinite(loss) and abs(loss - jloss) <= 2e-2 * abs(jloss)
+            assert abs(loss - alone[s - 1][0]) <= 1e-5 * abs(alone[s - 1][0])
+            for k, p in params.items():
+                dp = p.astype(np.float64) - got[s - 1][1][k]
+                jdp = jparams[k].astype(np.float64) - want[s - 1][1][k]
+                excess = np.abs(dp - jdp) - 2.0**-22 * np.abs(got[s - 1][1][k])
+                assert excess.max() <= (2.0**-7 + 1e-5) * np.abs(jdp).max(), (s, k)
+                np.testing.assert_allclose(p, alone[s - 1][1][k], rtol=1e-5, atol=1e-5)
+    # the step moves every parameter
+    assert all(np.abs(want[1][1][k] - start[1][k]).max() > 0 for k in start[1])
+
+
+def _sssp_pred_rule(graph, dist, source):
+    """The single-device sweep's predecessors in numpy: the smallest src
+    among the tree edges dist[s] + w == dist[d] (f32), sources excluded."""
+    csc = _sg_graph(graph).csc()
+    s, d = csc.minors.numpy().astype(np.int64), csc.majors.numpy().astype(np.int64)
+    w = np.ones(len(s), np.float32) if csc.weights is None else csc.weights.numpy()
+    tree = np.isfinite(dist[d]) & ((dist[s] + w).astype(np.float32) == dist[d]) & (d != source)
+    pred = np.full(len(dist), len(dist), np.int64)
+    np.minimum.at(pred, d[tree], s[tree])
+    return np.where(pred < len(dist), pred, -1).astype(np.int32)
+
+
+@train_shapes
+@graphs
+def test_mg_sssp_matches_jax(shape, graph):
+    mesh, _, mgg = _jax_graph(shape, graph)
+    source = _cases()[graph]["sources"][0]
+    dist, _ = jax_mg_algos.mg_sssp(mesh, mgg, source)
+    got = _global(shape, graph, "sssp_dist")
+    np.testing.assert_array_equal(got, jax_unshard(mgg, dist))
+    assert np.isfinite(got).sum() > 1
+    np.testing.assert_array_equal(_global(shape, graph, "sssp_pred"),
+                                  _sssp_pred_rule(graph, got, source))
+
+
+@train_shapes
+@graphs
+@pytest.mark.parametrize("algo", ["katz", "eigenvector", "hits"])
+def test_mg_centrality_matches_jax(shape, graph, algo):
+    mesh, _, mgg = _jax_graph(shape, graph)
+    if algo == "katz":
+        want = {"katz": jax_mg_algos.mg_katz_centrality(mesh, mgg, _cases()[graph]["katz_alpha"])}
+    elif algo == "eigenvector":
+        want = {"eigenvector": jax_mg_algos.mg_eigenvector_centrality(mesh, mgg)}
+    else:
+        h, a = jax_mg_algos.mg_hits(mesh, mgg)
+        want = {"hits_hubs": h, "hits_authorities": a}
+    for key, value in want.items():
+        got = _global(shape, graph, key)
+        assert np.isfinite(got).all() and np.abs(got).max() > 0
+        np.testing.assert_allclose(got, jax_unshard(mgg, value), rtol=0, atol=1e-5)

@@ -4,8 +4,9 @@
    branch (V > 8192) backpropagates through ``SpmmRowsFunction`` (its
    backward is ``spmm_rows`` over the CSR). dX equals ``jax.grad`` of the
    JAX ``spmm_aggregate`` on the CPU (exact f32 in both: relative 1e-5 of
-   max |dX|) and autograd through the plain version; the MG aggregation,
-   which has no backward yet, raises instead of losing the gradient.
+   max |dX|) and autograd through the plain version; the MG aggregation
+   on a 1 x 1 mesh gives the single-device dX (it raised while it had no
+   backward; ``MGSpmmFunction`` is its backward now).
 2. ``bfs`` above MAX_VERTICES (lowered with monkeypatch) runs every level
    as the compacted push and equals the JAX ``bfs``, distances and
    predecessors.
@@ -29,7 +30,6 @@ from cugraph_tpu.generators.rmat import rmat_edgelist as jax_rmat
 from cugraph_tpu.gnn import spmm_aggregate as jax_aggregate
 from cugraph_tpu_torch import prims as tprims
 from cugraph_tpu_torch.algos import traversal
-from cugraph_tpu_torch.dist import mg_prims
 from cugraph_tpu_torch.generators.rmat import scramble_vertex_ids
 from cugraph_tpu_torch.gnn import SAGEConv, spmm_aggregate
 from cugraph_tpu_torch.prims.cuda import SpmmRowsFunction, spmm_rows, spmm_rows_reference
@@ -124,9 +124,18 @@ def test_gradient_needs_the_csr():
 
 
 def test_mg_spmm_raises_on_a_gradient():
-    feats = torch.randn(6, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        mg_prims.per_v_incoming_sorted_spmm(None, None, feats)
+    """Named for the fault it pinned while the MG aggregation had no
+    backward: a gradient raised instead of being lost. It has one now, so
+    on a 1 x 1 gloo mesh its output and dX equal the single-device
+    ``SpmmRowsFunction``'s in bf16 mode, bit for bit (one rank: the same
+    products, summed in the same order)."""
+    import _torch_dist_worker as worker
+
+    (res,) = worker.spawn(worker.run_mg_spmm_gradient, 1)
+    (y_mg, dx_mg), (y_sg, dx_sg) = res["mg"], res["sg"]
+    np.testing.assert_array_equal(y_mg, y_sg)
+    np.testing.assert_array_equal(dx_mg, dx_sg)
+    assert np.abs(dx_mg).max() > 0
 
 
 def _karate():

@@ -21,7 +21,7 @@ import torch
 
 import _torch_dist_worker as worker
 import cugraph_tpu_torch as ct
-from cugraph_tpu_torch import api, experimental
+from cugraph_tpu_torch import api, experimental, gnn
 from cugraph_tpu_torch.core.renumber import NumberMap
 from cugraph_tpu_torch.core.serialize import deserialize_graph, load_graph
 from cugraph_tpu_torch import dist as ctd
@@ -65,7 +65,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "algos/linear_assignment.py", "algos/layout.py", "api/graph.py",
                 "api/algorithms.py", "api/nx_compat.py", "api/property_graph.py",
                 "api/__init__.py", "testing/datasets.py", "experimental/datasets.py",
-                "experimental/compat_nx.py"):
+                "experimental/compat_nx.py", "gnn/loader.py", "gnn/graph_store.py",
+                "gnn/pyg_store.py", "dist/mg_gnn.py"):
         assert ROOT / "cugraph_tpu_torch" / mod in files
     bad = [
         (str(f.relative_to(ROOT)), mod)
@@ -119,9 +120,34 @@ ENTRY_POINTS = {
     "api.from_networkx": lambda: api.from_networkx(_karate_nx()),
     "PropertyGraph.extract_subgraph": lambda: _property_graph().extract_subgraph(),
     # a mesh whose ranks sit on cards
-    "mg_rmat_edgelist": lambda: ct.mg_rmat_edgelist(
-        types.SimpleNamespace(shape=(1, 1), device=torch.device("cuda")), 4, 16),
+    "mg_rmat_edgelist": lambda: ct.mg_rmat_edgelist(_CARD_MESH, 4, 16),
+    "GraphStore": lambda: gnn.GraphStore(),
+    "FeatureStorage": lambda: gnn.FeatureStorage(api.PropertyGraph(), ["f"], ""),
+    "PyGStore": lambda: gnn.PyGStore(),
+    "to_pyg": lambda: gnn.to_pyg(api.PropertyGraph()),
+    # a graph on the card
+    "NeighborLoader": lambda: gnn.NeighborLoader(_CARD_GRAPH, [0], [2]),
+    "LinkNeighborLoader": lambda: gnn.LinkNeighborLoader(_CARD_GRAPH, [[0, 1]], [2]),
+    "make_sage_train_step": lambda: ctd.mg_gnn.make_sage_train_step(_CARD_MESH, _mg_graph()),
+    "mg_sssp": lambda: ctd.mg_algos.mg_sssp(_CARD_MESH, _mg_graph(), 0),
+    "mg_katz_centrality": lambda: ctd.mg_algos.mg_katz_centrality(_CARD_MESH, _mg_graph(), 0.1),
+    "mg_eigenvector_centrality": lambda: ctd.mg_algos.mg_eigenvector_centrality(
+        _CARD_MESH, _mg_graph()),
+    "mg_hits": lambda: ctd.mg_algos.mg_hits(_CARD_MESH, _mg_graph()),
 }
+_CARD_MESH = types.SimpleNamespace(shape=(1, 1), rows=1, cols=1, i=0, j=0,
+                                   device=torch.device("cuda"))
+_CARD_GRAPH = types.SimpleNamespace(device=torch.device("cuda"))
+
+
+def _mg_graph():
+    """A 1 x 1 share of a 4-vertex graph; only its shape is read before
+    the mesh's device is."""
+    from cugraph_tpu_torch.dist.partition import Partition2D
+
+    part = Partition2D.create(1, 1, 4)
+    return types.SimpleNamespace(partition=part, vp=part.vp, num_vertices=4, rows=1, cols=1,
+                                 weighted=False)
 
 
 def _property_graph():
@@ -203,6 +229,31 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
     assert [fn.launches for fn in counters] == before == [0] * len(counters)
 
 
+def test_cpu_trainer_step_launches_no_kernel():
+    """One minibatch step on the CPU (loader -> block -> GraphSAGE ->
+    cross-entropy -> backward -> Adam) above the dense branch: the sparse
+    aggregation and its backward take the plain version."""
+    counters = (spmv_sum, spmv_minplus, spmm_rows, cumsum_flat, assemble_chunks)
+    before = [fn.launches for fn in counters]
+    rng = np.random.default_rng(1)
+    v = 9000  # above DENSE_MAX_VERTICES, so the blocks' graphs are not dense
+    src, dst = rng.integers(0, v, 60000), rng.integers(0, v, 60000)
+    g = ct.from_edgelist(src, dst, num_vertices=v, device="cpu")
+    feats = torch.from_numpy(rng.normal(size=(v, 8)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 3, v))
+    model = GraphSAGE(8, 8, 3, device="cpu")
+    opt = torch.optim.Adam(model.parameters())
+    block = next(iter(gnn.NeighborLoader(g, np.arange(v), [-1, -1], batch_size=1500)))
+    assert block.graph.num_vertices > 8192
+    ids = block.n_ids.long()
+    out = model(block.graph, feats[ids])
+    loss = torch.nn.functional.cross_entropy(out[: block.num_seeds], labels[ids][: block.num_seeds])
+    loss.backward()
+    opt.step()
+    assert model.convs[0].lin_nbr.weight.grad.abs().max() > 0
+    assert [fn.launches for fn in counters] == before == [0] * len(counters)
+
+
 def test_cpu_ranks_launch_no_kernel():
     """The MG entry points in two gloo ranks on the CPU, mesh (2, 1)."""
     for r in worker.spawn(worker.run_launch_counts, 2):
@@ -224,7 +275,8 @@ def _exported_names(path):
     return names
 
 
-@pytest.mark.parametrize("package, port", [("__init__.py", ct), ("api/__init__.py", api)])
+@pytest.mark.parametrize("package, port", [("__init__.py", ct), ("api/__init__.py", api),
+                                           ("gnn/__init__.py", gnn)])
 def test_every_jax_export_exists_in_the_port(package, port):
     names = _exported_names(ROOT / "cugraph_tpu" / package)
     assert len(names) > 3
