@@ -16,6 +16,13 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    twice and bit-equal. Median times of single calls and of back-to-back
    calls; bounds, library yardsticks, each tile plan's one-time cost, and
    an SpMV wrapper's host time split into its parts.
+3b. Fault path: every entry point that takes vertex ids from its caller
+   (pagerank's personalization, the four similarity pairs, the sampler's,
+   the walks' and node2vec's starts, extract_bfs_paths' destinations,
+   mg_pagerank's personalization on a 1 x 1 NCCL mesh) given an id out of
+   range on the card must raise GraphError; modularity gives one Q under
+   renamed labels; then spmv_sum and spmv_minplus against their plain
+   versions in the same process (the CUDA context survived).
 4. Main path at RMAT scale 21, edgefactor 16, scrambled: generate ->
    renumber -> from_edgelist -> pagerank(tol=0, 50 iterations) ->
    bfs(0) -> 2-layer GraphSAGE forward (F = 128 -> 128 -> 64), each held
@@ -30,7 +37,10 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    with the launch counters set to 0 just before and read just after;
    held against the single-device pagerank and bfs and float64 GraphSAGE
    layers, and the rank's in_block against the single-device CSC. Each
-   kernel checked and timed on the rank's block.
+   kernel checked and timed on the rank's block. Then mg_extract_bfs_paths
+   to 1,024 seeded destinations against extract_bfs_paths, and
+   mg_pagerank(gather_mode="ring") bit-equal to "all_gather", both timed
+   warm.
 6. Weighted path on the same graph with weights in (0, 1]: spmv_sum and
    spmv_minplus checked and timed on its CSC, then katz, eigenvector,
    hits, pagerank(tol=0, 20 iterations), sssp(0), betweenness and edge
@@ -79,6 +89,10 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    reference: scipy's weak and strong components, the core numbers by
    h-index iteration from the degrees, float64 modularity above the
    singletons', a min-degree probe count of triangles and k-truss support.
+   Then the MG community path on the same symmetrized graph on a 1 x 1
+   NCCL mesh: mg_wcc and mg_core_number bit-equal to the single-device
+   results, mg_louvain and mg_leiden with Q within TOL_MG_Q of float64
+   modularity of their labels, beside the single-device Q.
 10. API path: the s21 edges as a pandas frame of sparse int64 ids (id *
    an odd constant mod 2^64) -> api.Graph().from_pandas_edgelist, twice,
    NumberMap.renumber timed apart; its internal ids against
@@ -116,6 +130,17 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    mg_sssp(0), mg_katz_centrality, mg_eigenvector_centrality and mg_hits,
    each with its launch counts, held against the single-device sssp
    (equal distances and predecessors), katz, eigenvector and hits.
+13. Service path: a CugraphTpuServer on localhost over the scale-18 R-MAT
+   edges (each once) as a CSV in a temporary directory; PageRank, BFS,
+   SSSP, WCC and Katz through CugraphTpuClient, each equal to the port's
+   api.algorithms call on a Graph of the same frame and timed beside it;
+   distribute_graph([1, 1]) (the handler's own one-rank NCCL group, ended
+   by the server's stop), the MG-routed results against the single-device
+   ones, the MG sampler's NotImplementedError.
+14. Examples path: cugraph_tpu_torch.examples.train_graphsage and
+   community_detection through their main() at their default sizes, and
+   the trainer again at scale 18, where its blocks take spmm_rows; the
+   trainer's loss must fall.
 
 The line before the last is one JSON object with a "kernels" list; the
 last line is {"ok": true, "device": {...}}. Without CUDA the script exits
@@ -259,6 +284,12 @@ TRAIN_DROP_EVERY = 1000
 # MG Katz and eigenvector run this many iterations on both sides (tol 0):
 # at the default tol, V * tol = 2.1 at s21 stops them after 3
 MG_CENTRALITY_ITERATIONS = 100
+# the MG community path: Louvain's and Leiden's reported Q against float64
+# modularity of their labels
+TOL_MG_Q = 1e-5
+MG_PATH_DESTINATIONS = 1024  # mg_extract_bfs_paths in the MG path
+SERVICE_SCALE = 18  # the service path's R-MAT edge CSV
+EXAMPLE_SPARSE_SCALE = 18  # the example trainer's blocks above DENSE_MAX_VERTICES
 
 
 def log(msg: str) -> None:
@@ -1128,6 +1159,40 @@ def mg_path(scale: int, seed: int) -> dict:
     require(torch.equal(unshard_vertex_values(mgg, pred_l), rp), "mg_bfs predecessors differ")
     out["bfs"] = dict(reached=int((rd < 2**31 - 1).sum()))
 
+    # paths to 1,024 seeded destinations, and the ring PageRank: the
+    # counters set to 0 just before and read just after
+    for k in counters.values():
+        k.launches = 0
+    dests = torch.randint(0, v, (MG_PATH_DESTINATIONS,), device=DEV,
+                          generator=torch.Generator(device=DEV).manual_seed(seed + 9))
+    t = time.perf_counter()
+    paths, max_len = mg_algos.mg_extract_bfs_paths(mesh, mgg, dist_l, pred_l, dests)
+    sync()
+    seconds["mg_extract_bfs_paths"] = time.perf_counter() - t
+    want, want_len = ct.extract_bfs_paths(g, rd, rp, dests)
+    require(max_len == want_len and torch.equal(paths, want),
+            "mg_extract_bfs_paths differs from extract_bfs_paths")
+    t = time.perf_counter()
+    ring_l, ring_iters = mg_algos.mg_pagerank(mesh, mgg, tol=0.0, max_iterations=50,
+                                              gather_mode="ring")
+    sync()
+    seconds["mg_pagerank_ring"] = time.perf_counter() - t
+    extra = {name: k.launches for name, k in counters.items()}
+    require(extra["spmv_sum"] == ring_iters, "the ring PageRank must launch spmv_sum once an iteration")
+    require(torch.equal(ring_l, pr_l), "ring mg_pagerank differs from all_gather on 1 x 1")
+    warm = {}
+    for mode in ("all_gather", "ring"):
+        t = time.perf_counter()
+        mg_algos.mg_pagerank(mesh, mgg, tol=0.0, max_iterations=50, gather_mode=mode)
+        sync()
+        warm[mode] = time.perf_counter() - t
+    out["paths"] = dict(destinations=MG_PATH_DESTINATIONS, max_len=max_len,
+                        seconds=seconds["mg_extract_bfs_paths"])
+    out["ring"] = dict(bit_equal_all_gather=True, iterations=ring_iters, warm_s=warm)
+    out["extra_launches"] = extra
+    log(f"mg path paths and ring: {json.dumps({k: out[k] for k in ('paths', 'ring')})}, "
+        f"launches {json.dumps(extra)}")
+
     # GraphSAGE: finite, (V, 64); the forward is its two layers, and each
     # layer matches float64 on the layer's own input
     emb = unshard_vertex_values(mgg, results["mg_graphsage"])
@@ -1835,24 +1900,17 @@ def mg_rmat_ingest(scale: int, seed: int) -> dict:
     in_block equals a CSC of the shards built here in numpy (a stable sort
     by (dst, src), offsets from a bincount)."""
     import numpy as np
-    import torch.distributed as dist
 
     import cugraph_tpu_torch as ct
-    from cugraph_tpu_torch.dist import initialize_distributed, make_mesh
     from cugraph_tpu_torch.dist.mg_graph import distribute_edgelist_chunks
 
     v = 1 << scale
-    initialize_distributed(device=DEV, init_method=f"tcp://127.0.0.1:{free_port()}",
-                           world_size=1, rank=0)
-    try:
-        mesh = make_mesh((1, 1), device=DEV)
+    with one_rank_mesh() as mesh:
         shards = ct.mg_rmat_edgelist(mesh, scale, 16 * v, seed=seed, scramble=True)
         t = time.perf_counter()
         mgg = distribute_edgelist_chunks(mesh, ct.rmat_chunk_source(shards), num_vertices=v)
         sync()
         seconds = time.perf_counter() - t
-    finally:
-        dist.destroy_process_group()
     src, dst = (torch.cat(a).cpu().numpy().astype(np.int64)
                 for a in zip(*ct.rmat_chunk_source(shards)()))
     order = np.lexsort((src, dst))
@@ -2261,8 +2319,13 @@ def community_path(scale: int, small_scale: int, seed: int) -> dict:
         out[name] = dict(modularity64=modularity64(small[10], lab10))
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"community path checks: {json.dumps({n: out[n] for n in out if n not in ('seconds', 'launches')})}")
-    out["warm"] = warm_breakdown(phases)
-    return out
+    # core_number's warm run (21.8 s, 2,239 rounds) is left out to keep
+    # the script inside its time; its first call is timed above
+    out["warm"] = warm_breakdown({k: fn for k, fn in phases.items() if k != "core_number"})
+    # the graph and the results the MG community path is held to
+    refs = dict(g=g, wcc=wcc, core_number=core, louvain=results["louvain"],
+                leiden=results["leiden"])
+    return out, refs
 
 
 # ------------------------------------------------------------- API path
@@ -2885,9 +2948,7 @@ def mg_train_step(g, seed: int) -> dict:
     single-device spmm_aggregate on the card (bf16 too), its loss against
     the single-device loss; spmm_rows over the rank's out_block (the
     backward's product) checked and timed against its plain version."""
-    import torch.distributed as dist
-
-    from cugraph_tpu_torch.dist import distribute_graph, initialize_distributed, make_mesh, mg_gnn
+    from cugraph_tpu_torch.dist import distribute_graph, mg_gnn
     from cugraph_tpu_torch.dist.mg_graph import shard_vertex_values
     from cugraph_tpu_torch.gnn import spmm_aggregate
     from cugraph_tpu_torch.prims.cuda import spmm_rows, spmm_rows_reference
@@ -2911,12 +2972,7 @@ def mg_train_step(g, seed: int) -> dict:
 
     seconds = {}
     t = time.perf_counter()
-    initialize_distributed(device=DEV, init_method=f"tcp://127.0.0.1:{free_port()}",
-                           world_size=1, rank=0)
-    try:
-        mesh = make_mesh((1, 1), device=DEV)
-        for group in (None, mesh.row_group, mesh.col_group):
-            dist.all_reduce(torch.zeros(1, device=DEV), group=group)
+    with one_rank_mesh() as mesh:
         sync()
         seconds["setup"] = time.perf_counter() - t
         t = time.perf_counter()
@@ -2963,8 +3019,6 @@ def mg_train_step(g, seed: int) -> dict:
             plain_ms=median_ms(lambda: spmm_rows_reference(blk, dy, precision="bf16"), 3),
             bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: lib @ dy, 10),
             block=dict(majors=rows, minors=blk.num_minors, edges=e, needed_dy_rows=n_dst))
-    finally:
-        dist.destroy_process_group()
     res = dict(seconds=seconds, step_s=step_s, losses=losses, launches_by_step=launches,
                sg_loss=sg_loss.item(), loss_rel_err=loss_rel, update_rel_err=upd_err,
                warm_step=dict(wall_s=wall, device_busy_s=busy,
@@ -2996,10 +3050,8 @@ def mg_weighted_path(g, seed: int) -> dict:
     predecessors equal, the centralities within TOL_CENTRALITY_REL. Katz
     and eigenvector run MG_CENTRALITY_ITERATIONS iterations on both
     sides."""
-    import torch.distributed as dist
-
     import cugraph_tpu_torch as ct
-    from cugraph_tpu_torch.dist import distribute_graph, initialize_distributed, make_mesh, mg_algos
+    from cugraph_tpu_torch.dist import distribute_graph, mg_algos
     from cugraph_tpu_torch.dist.mg_graph import unshard_vertex_values
     from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
 
@@ -3007,12 +3059,7 @@ def mg_weighted_path(g, seed: int) -> dict:
     alpha = 1.0 / (int(g.out_degrees().max()) + 1)  # the single-device default
     fixed = dict(max_iterations=MG_CENTRALITY_ITERATIONS, tol=0.0)
     seconds, launches, results = {}, {}, {}
-    initialize_distributed(device=DEV, init_method=f"tcp://127.0.0.1:{free_port()}",
-                           world_size=1, rank=0)
-    try:
-        mesh = make_mesh((1, 1), device=DEV)
-        for group in (None, mesh.row_group, mesh.col_group):
-            dist.all_reduce(torch.zeros(1, device=DEV), group=group)
+    with one_rank_mesh() as mesh:
         mgg = distribute_graph(mesh, g)
         phases = {
             "mg_sssp": lambda: mg_algos.mg_sssp(mesh, mgg, 0),
@@ -3036,8 +3083,6 @@ def mg_weighted_path(g, seed: int) -> dict:
         for name in ("mg_katz", "mg_eigenvector", "mg_hits"):
             require(launches[name]["spmv_sum"] > 0, f"spmv_sum was not launched by {name}")
         warm = warm_breakdown(phases)
-    finally:
-        dist.destroy_process_group()
     out = dict(seconds=seconds, launches=launches, warm=warm)
     dist_, pred = results["mg_sssp"]
     rd, rp = ct.sssp(g, 0)
@@ -3053,6 +3098,333 @@ def mg_weighted_path(g, seed: int) -> dict:
         out[name] = dict(rel_err=err, spmv_sum=launches[name]["spmv_sum"])
     log(f"mg weighted path checks: {json.dumps({k: out[k] for k in ('sssp', *refs)})}")
     return out
+
+
+# ------------------------------------------------ one-rank NCCL groups
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A 1 x 1 mesh on its own one-rank group (NCCL on the card, gloo
+    where DEV is the CPU), each group's communicator made by a first
+    collective; the group is destroyed on the way out."""
+    import torch.distributed as dist
+
+    from cugraph_tpu_torch.dist import initialize_distributed, make_mesh
+
+    initialize_distributed(device=DEV, init_method=f"tcp://127.0.0.1:{free_port()}",
+                           world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), device=DEV)
+        for group in (None, mesh.row_group, mesh.col_group):
+            dist.all_reduce(torch.zeros(1, device=DEV), group=group)
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+# ----------------------------------------------------------- fault path
+
+
+def fault_path(seed: int) -> dict:
+    """Each entry point that takes vertex ids from its caller, given one
+    id out of range on the card, must raise GraphError before any device
+    gather reads it (an out-of-range index in torch's CUDA indexing
+    kernels trips a device-side assert, and the process loses its CUDA
+    context): pagerank's personalization, the four similarity pairs, the
+    starts of the sampler, the walks and node2vec, extract_bfs_paths'
+    destinations, mg_pagerank's personalization on a 1 x 1 NCCL mesh.
+    modularity takes any integer labels. Then one spmv_sum and one
+    spmv_minplus on the same process, each against its plain version:
+    the context is alive. No error is caught but the one each call must
+    raise."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import distribute_graph, mg_algos
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+    from cugraph_tpu_torch.utils.error import GraphError
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    src, dst, v = rmat_edges(12, seed)
+    g = ct.from_edgelist(src, dst, num_vertices=v, symmetrize=True, device=DEV)
+    w = 1.0 - torch.rand(src.numel(), generator=torch.Generator(device=DEV).manual_seed(seed + 3),
+                         device=DEV)
+    gw = ct.from_edgelist(src, dst, w, num_vertices=v, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    dist_, pred = ct.bfs(g, 0)
+    calls = {
+        "pagerank.personalization": lambda bad: ct.pagerank(g, personalization=([0, bad], [1.0, 1.0])),
+        # -1 marks an empty slot among the sampler's starts: -2 is the bad id
+        "uniform_neighbor_sample.start_vertices": lambda bad: ct.uniform_neighbor_sample(
+            gw, [0, -2 if bad == -1 else bad], [4, 4], generator=gen),
+        "random_walks.start_vertices": lambda bad: ct.random_walks(gw, [bad], 8, generator=gen),
+        "random_walks_biased.start_vertices": lambda bad: ct.random_walks(
+            gw, [bad], 8, biased=True, generator=gen),
+        "node2vec.start_vertices": lambda bad: ct.node2vec(gw, [bad], 8, generator=gen),
+        "extract_bfs_paths.destinations": lambda bad: ct.extract_bfs_paths(g, dist_, pred, [1, bad]),
+    }
+    for kind in ("jaccard", "sorensen", "overlap", "cosine"):
+        calls[f"{kind}.pairs"] = lambda bad, fn=getattr(ct, kind): fn(g, pairs=([0, 1], [bad, 2]))
+    raised = {}
+    for c in counters.values():
+        c.launches = 0
+    for name, call in calls.items():
+        for bad in (v, -1):
+            try:
+                call(bad)
+                raised[f"{name}[{bad}]"] = "returned"
+            except GraphError as exc:
+                raised[f"{name}[{bad}]"] = str(exc)
+    with one_rank_mesh() as mesh:
+        mgg = distribute_graph(mesh, g)
+        for bad in (v, -1):
+            try:
+                mg_algos.mg_pagerank(mesh, mgg, personalization=([0, bad], [1.0, 1.0]))
+                raised[f"mg_pagerank.personalization[{bad}]"] = "returned"
+            except GraphError as exc:
+                raised[f"mg_pagerank.personalization[{bad}]"] = str(exc)
+    launches = {n: c.launches for n, c in counters.items()}
+    log(f"fault path: {json.dumps(raised)}")
+    for name, msg in raised.items():
+        require(msg != "returned" and "out of range" in msg, f"{name} did not raise: {msg}")
+    # modularity: labels + 2^40 and labels - 7 give the labels' Q
+    labels = ct.louvain(g)[0].long()
+    q = [ct.modularity(g, labels + shift) for shift in (0, 1 << 40, -7)]
+    require(max(q) - min(q) <= TOL_MODULARITY, f"modularity moves with the label names: {q}")
+    # the CUDA context is alive: both SpMVs against their plain versions
+    csc = g.csc()
+    x = torch.rand(v, generator=torch.Generator(device=DEV).manual_seed(seed + 1), device=DEV)
+    err_sum = check_spmv_sum(csc, x)
+    ids = torch.arange(v, dtype=torch.float32, device=DEV)
+    check_spmv_minplus(csc, torch.where(x < 0.1, ids, float("inf")), use_weights=False)
+    log(f"fault path: {len(raised)} raises, modularity under renamed labels {q}; spmv_sum "
+        f"(abs err {err_sum:.3e}) and spmv_minplus agree with their plain versions after them")
+    return dict(raised=raised, launches=launches, modularity_renamed=q,
+                spmv_sum_abs_err=err_sum, spmv_minplus_exact=True)
+
+
+# ---------------------------------------------------- MG community path
+
+
+def mg_community_path(g, refs: dict, seed: int) -> dict:
+    """mg_wcc, mg_core_number, mg_louvain and mg_leiden on the community
+    path's symmetrized graph, on a 1 x 1 NCCL mesh, each with the
+    counters set to 0 just before and read just after: WCC and core
+    numbers bit-equal to the single-device results (``refs``, from the
+    community path); Louvain and Leiden's Q within TOL_MG_Q of
+    modularity64 of their labels, their levels, beside the single-device
+    Q, and whether the labels are equal. First-call and warm seconds, idle shares and
+    peak bytes, as the community path gives them."""
+    from cugraph_tpu_torch.dist import distribute_graph, mg_algos, mg_community
+    from cugraph_tpu_torch.dist.mg_graph import unshard_vertex_values
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    seconds, launches, results, counts = {}, {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with one_rank_mesh() as mesh:
+        t = time.perf_counter()
+        mgg = distribute_graph(mesh, g)
+        sync()
+        seconds["mg_graph"] = time.perf_counter() - t
+        phases = {
+            "mg_wcc": lambda: mg_algos.mg_wcc(mesh, mgg),
+            "mg_core_number": lambda: mg_algos.mg_core_number(mesh, mgg, "incoming_outgoing"),
+            "mg_louvain": lambda: mg_community.mg_louvain(mesh, mgg),
+            "mg_leiden": lambda: mg_community.mg_leiden(mesh, mgg),
+        }
+        for name, fn in phases.items():
+            for c in counters.values():
+                c.launches = 0
+            t = time.perf_counter()
+            results[name] = fn()
+            sync()
+            seconds[name] = time.perf_counter() - t
+            launches[name] = {n: c.launches for n, c in counters.items()}
+        counts = dict(wcc_sweeps=mg_algos.mg_wcc.sweeps, core_rounds=mg_algos.mg_core_number.rounds,
+                      louvain_levels=mg_community.mg_louvain.levels,
+                      leiden_levels=mg_community.mg_leiden.levels)
+        wcc = unshard_vertex_values(mgg, results["mg_wcc"])
+        core = unshard_vertex_values(mgg, results["mg_core_number"])
+        log(f"mg community path seconds: {json.dumps(seconds)}")
+        log(f"mg community path launches: {json.dumps(launches)}, {json.dumps(counts)}")
+        out = dict(seconds=seconds, launches=launches, counts=counts,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        out["warm"] = warm_breakdown(phases)
+    require(launches["mg_wcc"]["spmv_minplus"] == 2 * counts["wcc_sweeps"],
+            "mg_wcc must launch spmv_minplus twice a sweep")
+    require(launches["mg_core_number"]["spmv_sum"] == 2 * counts["core_rounds"],
+            "mg_core_number must launch spmv_sum twice a round (both directions)")
+    require(torch.equal(wcc, refs["wcc"]), "mg_wcc differs from weakly_connected_components")
+    require(torch.equal(core, refs["core_number"]), "mg_core_number differs from core_number")
+    for name in ("louvain", "leiden"):
+        labels, q = results[f"mg_{name}"]
+        sg_labels, sg_q = refs[name]
+        q64 = modularity64(g, labels)
+        require(abs(q - q64) <= TOL_MG_Q, f"mg_{name} Q {q} vs float64 {q64}")
+        require(labels.shape == (g.num_vertices,) and labels.device.type == DEV.type,
+                f"mg_{name} labels")
+        out[f"mg_{name}"] = dict(modularity=q, modularity64=q64, abs_err=abs(q - q64),
+                                 levels=counts[f"{name}_levels"],
+                                 single_device_modularity=sg_q,
+                                 communities=int(torch.unique(labels).numel()),
+                                 labels_equal_single_device=bool(torch.equal(labels, sg_labels)))
+    out["wcc"] = dict(components=int(torch.unique(wcc).numel()), sweeps=counts["wcc_sweeps"])
+    out["core_number"] = dict(max=int(core.max()), rounds=counts["core_rounds"])
+    log(f"mg community path checks: {json.dumps({k: out[k] for k in ('wcc', 'core_number', 'mg_louvain', 'mg_leiden')})}")
+    return out
+
+
+# --------------------------------------------------------- service path
+
+
+def service_path(scale: int, seed: int) -> dict:
+    """A CugraphTpuServer on localhost over the scale-``scale`` R-MAT
+    edges (each once) written as a CSV to a temporary directory: PageRank, BFS, SSSP,
+    WCC and Katz asked for through CugraphTpuClient, each against the
+    port's api.algorithms call on a Graph built from the same frame
+    (timed beside it); then distribute_graph([1, 1]) (the handler starts
+    its own one-rank NCCL group) and the MG-routed results against the
+    single-device ones, and the MG sampler's NotImplementedError."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import pandas as pd
+
+    from cugraph_tpu_torch import api
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+    from cugraph_tpu_torch.service import CugraphServiceError, CugraphTpuClient, CugraphTpuServer
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    src, dst, v = rmat_edges(scale, seed)
+    # the handler builds simple graphs: each edge once
+    frame = pd.DataFrame({"src": src.cpu().numpy(), "dst": dst.cpu().numpy()}).drop_duplicates()
+    del src, dst
+    gapi = api.Graph(directed=True, device=DEV).from_pandas_edgelist(frame, "src", "dst")
+    alpha = 1.0 / (int(gapi.core.in_degrees().max()) + 1)
+    requests = {
+        "pagerank": ((), dict(tol=1e-6), lambda: api.algorithms.pagerank(gapi, tol=1e-6), "pagerank"),
+        "bfs": ((0,), {}, lambda: api.algorithms.bfs(gapi, 0), "distance"),
+        "sssp": ((0,), {}, lambda: api.algorithms.sssp(gapi, 0), "distance"),
+        "wcc": ((), {}, lambda: api.algorithms.weakly_connected_components(gapi), "labels"),
+        "katz_centrality": ((), dict(alpha=alpha, tol=1e-6),
+                            lambda: api.algorithms.katz_centrality(gapi, alpha=alpha, tol=1e-6),
+                            "katz_centrality"),
+    }
+    seconds, launches, out = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "edges.csv")
+        t = time.perf_counter()
+        frame.to_csv(path, index=False)
+        seconds["write_csv"] = time.perf_counter() - t
+        server = CugraphTpuServer(port=0, device=DEV)
+        server.start()
+        try:
+            client = CugraphTpuClient(port=server.port)
+            t = time.perf_counter()
+            client.load_csv_as_edge_data(path, vertex_col_names=["src", "dst"])
+            seconds["load_csv_as_edge_data"] = time.perf_counter() - t
+            info = client.get_graph_info(0)
+            require(info["num_edges"] == len(frame), f"graph info {info}")
+
+            def ask(prefix):
+                res = {}
+                for name, (args, kw, core, col) in requests.items():
+                    for c in counters.values():
+                        c.launches = 0
+                    t = time.perf_counter()
+                    res[name] = client.call(name, *args, **kw)
+                    seconds[f"{prefix}{name}_request"] = time.perf_counter() - t
+                    launches[f"{prefix}{name}"] = {n: c.launches for n, c in counters.items()}
+                return res
+
+            single = ask("")
+            for name, (args, kw, core, col) in requests.items():
+                t = time.perf_counter()
+                df = core()
+                sync()
+                seconds[f"{name}_core"] = time.perf_counter() - t
+                got = dict(zip(single[name]["vertex"], single[name][col]))
+                want = dict(zip(df["vertex"].tolist(), df[col].tolist()))
+                require(got == want, f"service {name} differs from api.algorithms.{name}")
+            t = time.perf_counter()
+            out["distribute_graph"] = client.call("distribute_graph", 0, [1, 1])
+            seconds["distribute_graph_request"] = time.perf_counter() - t
+            multi = ask("mg_")
+            for name, (args, kw, core, col) in requests.items():
+                a = np.asarray(multi[name][col], dtype=np.float64)
+                b = np.asarray(single[name][col], dtype=np.float64)
+                require(multi[name]["vertex"] == single[name]["vertex"], f"mg {name} vertices")
+                if name in ("pagerank", "katz_centrality"):
+                    err = float(np.abs(a - b).max() / np.abs(b).max())
+                    require(err <= TOL_CENTRALITY_REL, f"mg {name} error {err}")
+                    out[f"mg_{name}_rel_err"] = err
+                else:
+                    require(np.array_equal(a, b), f"mg {name} differs from the single-device one")
+            try:
+                client.call("uniform_neighbor_sample", [0], [4])
+                sample = "returned"
+            except CugraphServiceError as exc:
+                sample = str(exc)
+            require("NotImplementedError" in sample and "mg_sampling" in sample,
+                    f"the MG sampler must raise: {sample}")
+            out["mg_sample"] = sample
+        finally:
+            server.stop()
+    import torch.distributed as dist
+
+    require(not dist.is_initialized(), "the server's stop must end the handler's group")
+    require(launches["pagerank"]["spmv_sum"] > 0 and launches["mg_pagerank"]["spmv_sum"] > 0,
+            "service pagerank must launch spmv_sum")
+    require(launches["bfs"]["spmv_minplus"] > 0 and launches["mg_wcc"]["spmv_minplus"] > 0,
+            "service bfs and MG wcc must launch spmv_minplus")
+    out.update(seconds=seconds, launches=launches, num_edges=len(frame), vertices=v)
+    log(f"service path seconds: {json.dumps(seconds)}")
+    log(f"service path launches: {json.dumps(launches)}")
+    return out
+
+
+# -------------------------------------------------------- examples path
+
+
+def examples_path() -> dict:
+    """Both example scripts' main() on the card at their default sizes:
+    the trainer's loss must fall (the mean of its last 3 steps under that
+    of its first 3); community detection prints its Q. The trainer's
+    blocks at its default scale 14 hold fewer than DENSE_MAX_VERTICES
+    vertices and take the dense branch, so it runs once more at
+    EXAMPLE_SPARSE_SCALE, where they take spmm_rows, which must run."""
+    import contextlib as _cl
+    import io
+
+    from cugraph_tpu_torch.examples import community_detection, train_graphsage
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    out, launches, seconds = {}, {}, {}
+    for name, main_fn, argv in (
+            ("train_graphsage", train_graphsage.main, []),
+            ("train_graphsage_sparse", train_graphsage.main, ["--scale", str(EXAMPLE_SPARSE_SCALE)]),
+            ("community_detection", community_detection.main, [])):
+        for c in counters.values():
+            c.launches = 0
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with _cl.redirect_stdout(buf):
+            out[name] = main_fn(argv + ["--device", DEV.type])
+        sync()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = {n: c.launches for n, c in counters.items()}
+        log(f"examples path {name}: {buf.getvalue().strip()}")
+    for name in ("train_graphsage", "train_graphsage_sparse"):
+        losses = out[name]["losses"]
+        require(all(math.isfinite(x) for x in losses), f"a {name} loss is not finite")
+        require(sum(losses[-3:]) < sum(losses[:3]), f"the {name} loss did not fall: {losses}")
+    require(launches["train_graphsage_sparse"]["spmm_rows"] > 0,
+            "the trainer at EXAMPLE_SPARSE_SCALE must launch spmm_rows")
+    log(f"examples path: {json.dumps(launches)}, seconds {json.dumps(seconds)}")
+    return dict(launches=launches, seconds=seconds, train=out["train_graphsage"],
+                train_sparse=out["train_graphsage_sparse"], community=out["community_detection"])
 
 
 # ----------------------------------------------------------------- main
@@ -3126,6 +3498,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"kernel checks: {time.perf_counter() - t:.1f} s")
 
+    # 3b. vertex ids out of range raise, and the CUDA context stays alive
+    fpath = fault_path(args.seed)
+
     # 4. main path
     path = main_path(args.scale, args.seed)
     torch.cuda.empty_cache()
@@ -3148,8 +3523,13 @@ def main() -> int:
     del g
     torch.cuda.empty_cache()
 
-    # 9. community path
-    cpath = community_path(args.scale, min(SMALL_SCALE, args.scale), args.seed)
+    # 9. community path, then the MG community path on its graph
+    cpath, refs = community_path(args.scale, min(SMALL_SCALE, args.scale), args.seed)
+    t = time.perf_counter()
+    mcpath = mg_community_path(refs.pop("g"), refs, args.seed)
+    mcpath["path_s"] = time.perf_counter() - t
+    log(f"mg community path: {mcpath['path_s']:.1f} s")
+    del refs
     torch.cuda.empty_cache()
 
     # 10. the API path
@@ -3172,6 +3552,16 @@ def main() -> int:
     log(f"mg weighted path: {mwpath['path_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    # 13. the service over HTTP on localhost, then the example scripts
+    t = time.perf_counter()
+    svpath = service_path(min(SERVICE_SCALE, args.scale), args.seed)
+    svpath["path_s"] = time.perf_counter() - t
+    log(f"service path: {svpath['path_s']:.1f} s")
+    t = time.perf_counter()
+    expath = examples_path()
+    expath["path_s"] = time.perf_counter() - t
+    log(f"examples path: {expath['path_s']:.1f} s")
+
     def on_path(name, launches):
         return sum(n.get(name, 0) for n in launches.values())
 
@@ -3183,7 +3573,8 @@ def main() -> int:
             by_path = dict(scan_assemble_path=launches)
         else:
             launches = path["launches"][name]
-            by_path = dict(main_path=launches, mg_path=mgp["launches"][name],
+            by_path = dict(main_path=launches,
+                           mg_path=mgp["launches"][name] + mgp["extra_launches"][name],
                            weighted_path=on_path(name, wpath["launches"]),
                            gradient_path=path["gradient"]["launches"].get(name, 0))
         by_path["sampling_path"] = on_path(name, spath["launches"])
@@ -3191,6 +3582,10 @@ def main() -> int:
         by_path["api_path"] = on_path(name, apath["launches"])
         by_path["train_path"] = on_path(name, tpath["launches"])
         by_path["mg_weighted_path"] = on_path(name, mwpath["launches"])
+        by_path["fault_path"] = fpath["launches"].get(name, 0)
+        by_path["mg_community_path"] = on_path(name, mcpath["launches"])
+        by_path["service_path"] = on_path(name, svpath["launches"])
+        by_path["examples_path"] = on_path(name, expath["launches"])
         extra = {"weighted": weighted[name]} if name in weighted else {}
         if name in mgp["block"]:
             extra["mg_block"] = mgp["block"][name]
@@ -3205,7 +3600,9 @@ def main() -> int:
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
                       "mg_path": mgp, "weighted_path": wpath, "scan_assemble_path": scan,
                       "sampling_path": spath, "community_path": cpath, "api_path": apath,
-                      "train_path": tpath, "mg_weighted_path": mwpath, "card": smi}))
+                      "train_path": tpath, "mg_weighted_path": mwpath, "fault_path": fpath,
+                      "mg_community_path": mcpath, "service_path": svpath,
+                      "examples_path": expath, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

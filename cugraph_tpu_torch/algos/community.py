@@ -45,10 +45,15 @@ from ..utils.error import expects
 def modularity(g: Graph, labels, resolution: float = 1.0) -> float:
     """Modularity of a clustering (ref: common_methods.cuh
     compute_modularity), f32 on the graph's device. The graph must be
-    symmetric (each undirected edge stored in both directions); labels
-    are ids in [0, V)."""
+    symmetric (each undirected edge stored in both directions). A label
+    names a cluster and may be any integer, negative or >= V: the labels
+    are compacted to [0, clusters) before they index Sigma, so Q is
+    networkx's for any labels. The JAX package's segment sum drops the
+    Sigma of a label outside [0, V) and returns another Q there."""
     expects(g.is_symmetric, "modularity requires a symmetric graph")
-    labels = as_tensor(labels, torch.int64, g.device)
+    labels = as_tensor(labels, torch.int64, g.device).reshape(-1)
+    expects(labels.numel() == g.num_vertices, "modularity: one label per vertex")
+    _, labels = torch.unique(labels, return_inverse=True)
     # Q = intra / m2 - r * sum_c (Sigma_c / m2)^2, m2 = total directed weight
     k = g.out_weight_sums()
     m2 = k.sum().clamp(min=1e-30)

@@ -20,7 +20,7 @@ from ..core.csr import Graph
 from ..prims.cuda import pull_aggregate, push_aggregate
 from ..utils.device import as_tensor
 from ..utils.dtypes import WEIGHT_DTYPE
-from ..utils.error import expects
+from ..utils.error import expects, expects_vertex_ids
 
 
 def pagerank(
@@ -43,9 +43,10 @@ def pagerank(
     expects(v > 0, "empty graph")
     dev = g.device
     if personalization is not None:
-        ids, vals = personalization
+        ids = as_tensor(personalization[0], torch.int64, dev).reshape(-1)
+        expects_vertex_ids(ids, v, "personalization")
         reset = torch.zeros(v, dtype=WEIGHT_DTYPE, device=dev).index_add_(
-            0, as_tensor(ids, torch.int64, dev), as_tensor(vals, WEIGHT_DTYPE, dev)
+            0, ids, as_tensor(personalization[1], WEIGHT_DTYPE, dev).reshape(-1)
         )
         total = reset.sum()
         reset = reset / torch.where(total > 0, total, 1.0)

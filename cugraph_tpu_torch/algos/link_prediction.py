@@ -22,7 +22,7 @@ from ..core.csr import Graph
 from ..prims.intersection import per_v_pair_dst_nbr_intersection
 from ..utils.device import as_tensor
 from ..utils.dtypes import VERTEX_DTYPE, WEIGHT_DTYPE
-from ..utils.error import expects
+from ..utils.error import expects, expects_vertex_ids
 
 
 def _default_pairs(g: Graph) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,6 +42,7 @@ def _similarity(g: Graph, pairs, kind: str, use_weight: bool):
     else:
         v1 = as_tensor(pairs[0], VERTEX_DTYPE, g.device).reshape(-1)
         v2 = as_tensor(pairs[1], VERTEX_DTYPE, g.device).reshape(-1)
+        expects_vertex_ids(torch.cat([v1, v2]), g.num_vertices, "pairs")
     if use_weight:
         expects(g.weighted, "weighted similarity requires edge weights")
         # vertex weight w_x = sum of x's edge weights; a pair's intersection

@@ -34,7 +34,7 @@ from ..prims.frontier import transform_reduce_v_frontier_outgoing_e_by_dst
 from ..prims.reduce_ops import ANY, MINIMUM
 from ..utils.device import as_tensor
 from ..utils.dtypes import INT32_MAX, VERTEX_DTYPE, WEIGHT_DTYPE
-from ..utils.error import expects
+from ..utils.error import expects, expects_vertex_ids
 
 INVALID_DISTANCE = INT32_MAX  # ref: unreachable = INT_MAX
 INVALID_VERTEX = -1  # ref: no predecessor = invalid vertex id
@@ -236,6 +236,7 @@ def extract_bfs_paths(
     JAX package, max_path_length is 1 + the largest distance of a reached
     destination, truncated to an int."""
     dest = as_tensor(destinations, torch.int64, predecessors.device).reshape(-1)
+    expects_vertex_ids(dest, g.num_vertices, "destinations")
     d = distances[dest]
     finite = (d != INVALID_DISTANCE) & torch.isfinite(d.to(torch.float32))
     max_len = int(torch.where(finite, d, 0).max()) + 1

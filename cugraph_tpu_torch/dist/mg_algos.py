@@ -20,7 +20,7 @@ from ..algos.traversal import INVALID_DISTANCE, INVALID_VERTEX, MAX_VERTICES
 from ..prims.reduce_ops import ANY, MAXIMUM, MINIMUM, PLUS
 from ..utils.device import as_tensor, resolve_device
 from ..utils.dtypes import VERTEX_DTYPE, WEIGHT_DTYPE
-from ..utils.error import expects
+from ..utils.error import expects, expects_vertex_ids
 from . import mg_prims
 from .mesh import Mesh2D
 from .mg_graph import MGGraph, shard_vertex_values
@@ -78,13 +78,18 @@ def mg_pagerank(
     personalization: Optional[Tuple[object, object]] = None,
     nstart=None,
     fail_on_nonconvergence: bool = False,
+    gather_mode: str = "all_gather",
 ) -> Tuple[torch.Tensor, int]:
     """Returns (this rank's PageRank scores (vp,) f32, iterations).
 
-    personalization: (vertex_ids, values), the same on every rank; nstart:
-    a global (V,) start vector. The loop runs while the global L1 change
-    exceeds V * tol; each iteration is one ``per_v_incoming_sorted``, so
-    one ``spmv_sum`` launch on a card."""
+    personalization: (vertex_ids, values), the same on every rank, the
+    ids in [0, V) (``GraphError`` otherwise, as the single-device
+    ``pagerank``); nstart: a global (V,) start vector. The loop runs while
+    the global L1 change exceeds V * tol; each iteration is one
+    ``per_v_incoming_sorted``, so one ``spmv_sum`` launch on a card
+    (``gather_mode="all_gather"``), or R of them around the ring over
+    ``row_group`` (``"ring"``: peak src-side memory (vp,), not R*vp;
+    another mode raises ValueError)."""
     v = mgg.num_vertices
     gid, vmask = _local_ids(mesh, mgg)
     dev = mesh.device
@@ -94,6 +99,7 @@ def mg_pagerank(
     if personalization is not None:
         ids = as_tensor(personalization[0], torch.int64, dev).reshape(-1)
         vals = as_tensor(personalization[1], WEIGHT_DTYPE, dev).reshape(-1)
+        expects_vertex_ids(ids, v, "personalization")
         lo = int(gid[0])
         mine = (ids >= lo) & (ids < lo + mgg.vp)
         local = torch.zeros(mgg.vp, dtype=WEIGHT_DTYPE, device=dev)
@@ -111,7 +117,7 @@ def mg_pagerank(
 
     diff, it = float("inf"), 0
     while diff > v * tol and it < max_iterations:
-        agg = mg_prims.per_v_incoming_sorted(mesh, mgg, pr * inv_out)
+        agg = mg_prims.per_v_incoming_sorted(mesh, mgg, pr * inv_out, gather_mode=gather_mode)
         d_sum = mg_prims.transform_reduce_v(mesh, torch.where(dangling, pr, 0.0))
         new = alpha * (agg + d_sum * reset) + (1.0 - alpha) * reset
         new = torch.where(vmask, new, 0.0)
@@ -134,7 +140,7 @@ def mg_bfs(
     each; unreached vertices get INVALID_DISTANCE and -1.
 
     Up to 2^24 vertices (ids ride f32 exactly) a level is one dense
-    min-plus sweep, ``per_v_incoming_sorted_min`` (``spmv_minplus`` on a
+    min-plus sweep, ``frontier_push_by_dst_sorted`` (``spmv_minplus`` on a
     card): x = global id on the frontier, +inf elsewhere, so y is finite
     where a frontier in-neighbour exists and is then the smallest one,
     the predecessor. Above that, the frontier push with the same rule."""
@@ -155,9 +161,7 @@ def mg_bfs(
     depth = 0
     while n_frontier > 0 and depth < limit:
         if dense:
-            x = torch.where(frontier, gidf, float("inf"))
-            y = mg_prims.per_v_incoming_sorted_min(mesh, mgg, x)
-            touched = torch.isfinite(y)
+            touched, y = mg_prims.frontier_push_by_dst_sorted(mesh, mgg, frontier, gidf)
             pred_cand = torch.where(touched, y, -1.0).to(VERTEX_DTYPE)
         else:
             touched, pred_cand = mg_prims.frontier_push_by_dst(
@@ -328,3 +332,148 @@ def mg_spmm_aggregate(
         deg = mg_in_degrees(mesh, mgg).clamp(min=1).to(agg.dtype)
         agg = agg / deg[:, None]
     return agg
+
+
+# ---------------------------------------------------------------------------
+# WCC and core number: the loops of algos/components.py and algos/cores.py
+# (ref weakly_connected_components_impl.cuh, core_number_impl.cuh)
+# ---------------------------------------------------------------------------
+
+
+def mg_wcc(mesh: Mesh2D, mgg: MGGraph) -> torch.Tensor:
+    """This rank's (vp,) int32 component labels, each the smallest vertex
+    id of its weakly connected component, as the single-device
+    ``weakly_connected_components`` gives them.
+
+    Min-label propagation from the singletons until no label changes
+    anywhere (JAX mg_algos.py:562). Up to ``MAX_VERTICES`` (labels ride
+    f32 exactly) a sweep is two min-plus products without weights: down,
+    ``per_v_incoming_sorted_min`` over ``in_block``, and up,
+    ``per_v_outgoing_sorted_min`` over ``out_block`` (``spmv_minplus``
+    on a card). Above it the labels stay int32 and the sweeps take the
+    generic MIN prims, as the JAX package's XLA branch does (:628-636).
+    ``mg_wcc.sweeps`` holds the last call's sweep count."""
+    gid, _ = _local_ids(mesh, mgg)
+    labels = gid.to(VERTEX_DTYPE)
+    dense = mgg.num_vertices <= MAX_VERTICES
+    changed, sweeps = 1, 0
+    while changed > 0:
+        if dense:
+            lf = labels.to(torch.float32)
+            cand = torch.minimum(mg_prims.per_v_incoming_sorted_min(mesh, mgg, lf),
+                                 mg_prims.per_v_outgoing_sorted_min(mesh, mgg, lf))
+            new = torch.where(torch.isfinite(cand),
+                              torch.minimum(labels, cand.to(VERTEX_DTYPE)), labels)
+        else:
+            down = mg_prims.per_v_transform_reduce_incoming_e(
+                mesh, mgg, lambda s, d, sv, dv, w: sv, reduce_op=MINIMUM, src_values=labels)
+            up = mg_prims.per_v_transform_reduce_outgoing_e(
+                mesh, mgg, lambda s, d, sv, dv, w: dv, reduce_op=MINIMUM, dst_values=labels)
+            new = torch.minimum(labels, torch.minimum(down, up))
+        changed = int(mg_prims.transform_reduce_v(mesh, (new != labels).to(torch.int32)))
+        labels, sweeps = new, sweeps + 1
+    mg_wcc.sweeps = sweeps
+    return labels
+
+
+mg_wcc.sweeps = 0
+
+DEGREE_TYPES = ("incoming", "outgoing", "incoming_outgoing")
+
+
+def mg_core_number(
+    mesh: Mesh2D, mgg: MGGraph, degree_type: str = "incoming_outgoing"
+) -> torch.Tensor:
+    """This rank's (vp,) int32 core numbers, the peeling of the
+    single-device ``core_number`` (JAX mg_algos.py:910): at level k, alive
+    vertices of residual degree <= k drop out with core number k until a
+    round drops none anywhere; then k grows, until no vertex is alive.
+
+    The residual degree is an unweighted ``spmv_sum`` of the 0/1 alive
+    mask in each direction ``degree_type`` needs, as the JAX sorted
+    branch does (:960-977): ``per_v_incoming_sorted`` over ``in_block``
+    and ``per_v_outgoing_sorted`` over ``out_block``, rounded to int32,
+    exact while degrees stay under 2^24. Edge weights are ignored.
+    ``mg_core_number.rounds`` holds the last call's inner round count."""
+    expects(degree_type in DEGREE_TYPES, f"invalid degree_type {degree_type!r}")
+    _, vmask = _local_ids(mesh, mgg)
+
+    def residual_degree(alive):
+        af = alive.to(torch.float32)
+        out = torch.zeros(mgg.vp, dtype=torch.int32, device=af.device)
+        if degree_type in ("outgoing", "incoming_outgoing"):
+            d_out = mg_prims.per_v_outgoing_sorted(mesh, mgg, af, use_weights=False)
+            out += torch.round(d_out).to(torch.int32)
+        if degree_type in ("incoming", "incoming_outgoing"):
+            d_in = mg_prims.per_v_incoming_sorted(mesh, mgg, af, use_weights=False)
+            out += torch.round(d_in).to(torch.int32)
+        return out
+
+    alive = vmask.clone()
+    core = torch.zeros(mgg.vp, dtype=torch.int32, device=vmask.device)
+    n_alive = int(mg_prims.transform_reduce_v(mesh, alive.to(torch.int32)))
+    k, rounds = 0, 0
+    while n_alive > 0:
+        while True:
+            drop = alive & (residual_degree(alive) <= k)
+            dropped = int(mg_prims.transform_reduce_v(mesh, drop.to(torch.int32)))
+            rounds += 1
+            if dropped == 0:
+                break
+            core = torch.where(drop, k, core)
+            alive &= ~drop
+            n_alive -= dropped
+        k += 1
+    mg_core_number.rounds = rounds
+    return core
+
+
+mg_core_number.rounds = 0
+
+
+# ---------------------------------------------------------------------------
+# Path extraction (ref extract_bfs_paths_impl.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _replicated_lookup(mesh: Mesh2D, mgg: MGGraph, vals_l: torch.Tensor, keys: torch.Tensor,
+                       fill) -> torch.Tensor:
+    """vals[keys] for global keys that every rank holds alike, from the
+    owners' (vp,) slices: each rank puts in what it owns, and a SUM
+    all-reduce over the world joins them (JAX ``_replicated_lookup``,
+    mg_algos.py:1097). Keys outside [0, V) give ``fill``."""
+    lo, _ = mgg.partition.range_of(mesh.i, mesh.j)
+    loc = keys - lo
+    ok = (loc >= 0) & (loc < mgg.vp) & (keys < mgg.num_vertices)
+    contrib = torch.where(ok, vals_l[loc.clamp(0, mgg.vp - 1)], torch.zeros_like(vals_l[:1]))
+    found = ok.to(torch.int32)
+    torch.distributed.all_reduce(contrib)
+    torch.distributed.all_reduce(found)
+    return torch.where(found > 0, contrib, torch.full_like(contrib, fill))
+
+
+def mg_extract_bfs_paths(
+    mesh: Mesh2D, mgg: MGGraph, distances: torch.Tensor, predecessors: torch.Tensor, destinations
+) -> Tuple[torch.Tensor, int]:
+    """Paths from this rank's (vp,) ``mg_bfs`` or ``mg_sssp`` results:
+    (paths (n, max_len) int32, source first, padded with -1 at the front,
+    max_len), the contract of the single-device ``extract_bfs_paths``.
+    Every rank passes the same destinations, in [0, V), and gets the same
+    paths, a tensor on the mesh's device (the JAX package returns numpy).
+
+    Each hop is a lookup at the owner joined by a SUM all-reduce over the
+    world, on the device; the host reads only max_len."""
+    dev = resolve_device(mesh.device)
+    dest = as_tensor(destinations, torch.int64, dev).reshape(-1)
+    expects_vertex_ids(dest, mgg.num_vertices, "destinations")
+    d = _replicated_lookup(mesh, mgg, distances, dest, INVALID_DISTANCE)
+    finite = (d != INVALID_DISTANCE) & torch.isfinite(d.to(torch.float32))
+    max_len = int(torch.where(finite, d, 0).max()) + 1
+    cur = dest.to(VERTEX_DTYPE)
+    steps = []
+    for _ in range(max_len):
+        steps.append(cur)
+        hop = _replicated_lookup(mesh, mgg, predecessors, cur.clamp(min=0).to(torch.int64),
+                                 INVALID_VERTEX)
+        cur = torch.where(cur >= 0, hop, INVALID_VERTEX)
+    return torch.stack(steps, 1).flip(1), max_len

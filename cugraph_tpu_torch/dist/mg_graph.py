@@ -52,6 +52,8 @@ class MGGraph:
     num_vertices: int
     num_edges: int  # global
     is_symmetric: bool = False
+    # what is derived from the blocks once and kept: the ring's sub-blocks
+    cache: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
 
     @property
     def partition(self) -> Partition2D:

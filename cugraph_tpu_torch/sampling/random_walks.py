@@ -27,12 +27,15 @@ from ..core.csr import Graph
 from ..prims.intersection import edge_keys, edge_multiplicity, ragged_chunks
 from ..utils.device import as_tensor
 from ..utils.dtypes import VERTEX_DTYPE, WEIGHT_DTYPE
+from ..utils.error import expects_vertex_ids
 
 CANDIDATE_BUDGET = 1 << 24  # row slots expanded at once
 
 
 def _starts(g: Graph, start_vertices) -> torch.Tensor:
-    return as_tensor(start_vertices, VERTEX_DTYPE, g.device).reshape(-1)
+    starts = as_tensor(start_vertices, VERTEX_DTYPE, g.device).reshape(-1)
+    expects_vertex_ids(starts, g.num_vertices, "start_vertices")
+    return starts
 
 
 def _generator(g: Graph, generator: Optional[torch.Generator]) -> torch.Generator:

@@ -27,6 +27,7 @@ from ..prims.intersection import PAIR_BUDGET, ragged_chunks
 from ..prims.random_select import per_v_random_select_outgoing_e
 from ..utils.device import as_tensor
 from ..utils.dtypes import VERTEX_DTYPE
+from ..utils.error import expects_vertex_ids
 
 
 def _gather_one_hop(g: Graph, vertices: torch.Tensor, keep_slots: bool):
@@ -102,6 +103,8 @@ def uniform_neighbor_sample(
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     frontier = as_tensor(start_vertices, VERTEX_DTYPE, dev).reshape(-1)
+    # -1 marks an empty slot, as in every later hop's frontier
+    expects_vertex_ids(frontier[frontier != -1], g.num_vertices, "start_vertices")
     per_hop = []  # (srcs, dsts, weights or None, valid or None: all valid)
     for k in fanout_vals:
         if k < 0:

@@ -34,7 +34,8 @@ def _entry(rank, fn, world_size, workdir, args):
         out = fn(rank, *args)
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():  # a body may end the group itself
+            dist.destroy_process_group()
 
 
 def spawn(fn, world_size: int, *args, timeout: float = SPAWN_TIMEOUT_S) -> list:
@@ -176,7 +177,7 @@ def run_mesh(rank: int, shape, cases: dict) -> dict:
 def run_launch_counts(rank: int) -> dict:
     """The MG entry points on a small graph: the kernels' launch counts
     before and after (CPU tensors take the plain versions)."""
-    from cugraph_tpu_torch.dist import distribute_edgelist, make_mesh, mg_algos, mg_gnn
+    from cugraph_tpu_torch.dist import distribute_edgelist, make_mesh, mg_algos, mg_community, mg_gnn
     from cugraph_tpu_torch.dist.mg_graph import shard_vertex_values
 
     mesh = make_mesh(device="cpu")
@@ -197,6 +198,14 @@ def run_launch_counts(rank: int) -> dict:
     mg_algos.mg_katz_centrality(mesh, mgw, 0.05, max_iterations=3)
     mg_algos.mg_eigenvector_centrality(mesh, mgw, max_iterations=3)
     mg_algos.mg_hits(mesh, mgw, max_iterations=3)
+    mg_algos.mg_pagerank(mesh, mgw, max_iterations=3, gather_mode="ring")
+    mg_algos.mg_wcc(mesh, mgg)
+    mg_algos.mg_core_number(mesh, mgg)
+    dist_, pred = mg_algos.mg_bfs(mesh, mgg, 0)
+    mg_algos.mg_extract_bfs_paths(mesh, mgg, dist_, pred, [1, 2])
+    mgs = distribute_edgelist(mesh, src, dst, num_vertices=40, symmetrize=True)
+    mg_community.mg_louvain(mesh, mgs)
+    mg_community.mg_leiden(mesh, mgs, cluster_state="hypersparse")
     return {"before": before, "after": _launches(), "shape": mesh.shape}
 
 
@@ -260,4 +269,213 @@ def run_mg_spmm_gradient(rank: int) -> dict:
         y = fn(x)
         (y * dy).sum().backward()
         out[name] = (_np(y), _np(x.grad))
+    return out
+
+
+def run_bad_personalization(rank: int, shape) -> dict:
+    """mg_pagerank with a personalization id out of range on every rank:
+    whether it raised GraphError, and the sum of an in-range run."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import distribute_edgelist, make_mesh, mg_algos
+    from cugraph_tpu_torch.testing import karate_edgelist
+
+    mesh = make_mesh(tuple(shape), device="cpu")
+    s, d, _ = karate_edgelist()
+    mgg = distribute_edgelist(mesh, s, d, num_vertices=34, symmetrize=True)
+    out = {}
+    for bad in (34, -1):
+        try:
+            mg_algos.mg_pagerank(mesh, mgg, personalization=([0, bad], [1.0, 1.0]))
+            out[str(bad)] = False
+        except ct.utils.error.GraphError:
+            out[str(bad)] = True
+    pr, _ = mg_algos.mg_pagerank(mesh, mgg, personalization=([0, 33], [1.0, 1.0]))
+    out["in_range_sum"] = float(mg_algos.mg_prims.transform_reduce_v(mesh, pr))
+    return out
+
+
+def run_slice(rank: int, shape, cases: dict, exchange: dict) -> dict:
+    """The MG entry points of WCC, core number, path extraction, the ring
+    PageRank and the sorted-min prims on ``cases``; the keyed exchanges on
+    ``exchange``'s per-rank keys."""
+    from cugraph_tpu_torch.dist import distribute_edgelist, make_mesh, mg_algos, mg_prims
+    from cugraph_tpu_torch.dist.mg_graph import shard_vertex_values, unshard_vertex_values
+    from cugraph_tpu_torch.prims.reduce_ops import MINIMUM
+
+    mesh = make_mesh(tuple(shape), device="cpu")
+    out = {"coords": (mesh.i, mesh.j), "launches_before": _launches()}
+
+    def glob(mgg, local):
+        return _np(unshard_vertex_values(mgg, local))
+
+    for name, c in cases.items():
+        v = c["num_vertices"]
+        mgg = distribute_edgelist(mesh, c["src"], c["dst"], c["w"], num_vertices=v,
+                                  symmetrize=c["symmetrize"])
+        r = {}
+        dense_max = mg_algos.MAX_VERTICES
+        for branch, gate in (("f32", dense_max), ("int32", 0)):
+            mg_algos.MAX_VERTICES = gate
+            try:
+                r[f"wcc_{branch}"] = glob(mgg, mg_algos.mg_wcc(mesh, mgg))
+            finally:
+                mg_algos.MAX_VERTICES = dense_max
+        for dt in ("incoming", "outgoing", "incoming_outgoing"):
+            r[f"core_{dt}"] = glob(mgg, mg_algos.mg_core_number(mesh, mgg, dt))
+        dist_l, pred_l = mg_algos.mg_bfs(mesh, mgg, c["sources"])
+        r["paths"] = tuple(
+            _np(x) if torch.is_tensor(x) else x
+            for x in mg_algos.mg_extract_bfs_paths(mesh, mgg, dist_l, pred_l, c["destinations"]))
+        sd_l, sp_l = mg_algos.mg_sssp(mesh, mgg, c["sources"][0])
+        r["sssp_paths"] = _np(mg_algos.mg_extract_bfs_paths(
+            mesh, mgg, sd_l, sp_l, c["destinations"])[0])
+
+        # the ring never all-gathers over row_group; all_gather mode does
+        calls = {"ring": 0, "all_gather": 0}
+        real = mg_prims.all_gather_rows
+        for mode in calls:
+            def counting(t, group=None, _mode=mode):
+                calls[_mode] += group is mesh.row_group
+                return real(t, group)
+
+            mg_prims.all_gather_rows = counting
+            try:
+                r[f"pagerank_{mode}"] = glob(mgg, mg_algos.mg_pagerank(
+                    mesh, mgg, tol=1e-9, gather_mode=mode)[0])
+            finally:
+                mg_prims.all_gather_rows = real
+        r["row_all_gathers"] = calls
+        try:
+            mg_algos.mg_pagerank(mesh, mgg, gather_mode="rings")
+            r["bad_mode_raised"] = False
+        except ValueError:
+            r["bad_mode_raised"] = True
+
+        frontier = shard_vertex_values(mesh, mgg, c["frontier"])
+        vals = shard_vertex_values(mesh, mgg, c["frontier_values"])
+        touched, reduced = mg_prims.frontier_push_by_dst_sorted(
+            mesh, mgg, frontier, vals, use_weights=mgg.weighted)
+        g_touched, g_reduced = mg_prims.frontier_push_by_dst(
+            mesh, mgg, frontier, lambda s, d, sv, dv, w: (torch.ones_like(sv, dtype=torch.bool),
+                                                          sv if w is None else sv + w),
+            reduce_op=MINIMUM, src_values=vals)
+        r["push"] = [glob(mgg, t) for t in (touched, reduced, g_touched, g_reduced)]
+        up = mg_prims.per_v_outgoing_sorted_min(mesh, mgg, vals)
+        g_up = mg_prims.per_v_transform_reduce_outgoing_e(
+            mesh, mgg, lambda s, d, sv, dv, w: dv, reduce_op=MINIMUM, dst_values=vals)
+        r["outgoing_min"] = [glob(mgg, up), glob(mgg, g_up)]
+        out[name] = r
+
+    # the keyed exchanges: this rank's keys, the values of the vertex ranges
+    ex = exchange
+    me = (mesh.i, mesh.j)
+    mgg = distribute_edgelist(mesh, ex["src"], ex["dst"], num_vertices=ex["num_vertices"])
+    vals = shard_vertex_values(mesh, mgg, ex["values"])
+    keys = torch.from_numpy(ex["keys"][me])
+    valid = torch.from_numpy(ex["valid"][me])
+    res = {}
+    res["collect"] = mg_prims.collect_values_for_keys(mesh, keys, valid, vals, mgg.vp, ex["capacity"])
+    res["collect_unique"] = mg_prims.collect_values_for_unique_keys(
+        mesh, keys, valid, vals, mgg.vp, ex["capacity"])
+    k2, items, v2, ov = mg_prims.shuffle_to_vertex_owners(
+        mesh, keys, {"x": keys.to(torch.float32) * 0.5}, valid, mgg.vp, ex["capacity"])
+    res["shuffle"] = (k2, items["x"], v2, ov)
+    hot = torch.zeros(8, dtype=torch.int32)  # every rank sends 8 items to vertex 0's owner
+    k2, items, v2, ov = mg_prims.shuffle_to_vertex_owners(
+        mesh, hot, {"x": torch.arange(8, dtype=torch.float32)}, torch.ones(8, dtype=torch.bool),
+        mgg.vp, 2)
+    res["overflow"] = (k2, items["x"], v2, ov)
+    labels = shard_vertex_values(mesh, mgg, ex["labels"])
+    _, vmask = mg_algos._local_ids(mesh, mgg)
+    k_local = shard_vertex_values(mesh, mgg, ex["weights"])
+    res["sigma"] = mg_prims.cluster_weight_sums(mesh, labels, k_local, vmask, mgg.vp, ex["capacity"])
+    out["exchange"] = {n: tuple(_np(x) if torch.is_tensor(x) else x for x in t)
+                       for n, t in res.items()}
+    out["launches_after"] = _launches()
+    return out
+
+
+def run_community(rank: int, shape, community: dict) -> dict:
+    """mg_modularity, mg_louvain and mg_leiden in both cluster states, one
+    local-moving level and mg_decompress_to_edgelist on ``community``'s
+    graphs, symmetrized."""
+    from cugraph_tpu_torch.dist import distribute_edgelist, make_mesh, mg_community
+    from cugraph_tpu_torch.dist.mg_graph import shard_vertex_values, unshard_vertex_values
+
+    mesh = make_mesh(tuple(shape), device="cpu")
+    out = {"coords": (mesh.i, mesh.j), "launches_before": _launches()}
+    comm = {}
+    for name, c in community.items():
+        mgg = distribute_edgelist(mesh, c["src"], c["dst"], c["w"], num_vertices=c["num_vertices"],
+                                  symmetrize=True)
+        r = {"modularity": {}}
+        for lname, lab in c["labels"].items():
+            r["modularity"][lname] = mg_community.mg_modularity(
+                mesh, mgg, shard_vertex_values(mesh, mgg, lab))
+        for state in ("dense", "hypersparse"):
+            for algo in ("louvain", "leiden"):
+                fn = getattr(mg_community, f"mg_{algo}")
+                lab, q = fn(mesh, mgg, cluster_state=state)
+                r[f"{algo}_{state}"] = (_np(lab), q, str(lab.device), fn.levels)
+            lab, moves, ovf = mg_community._one_level(mesh, mgg, 1.0, 16, cluster_state=state)
+            r[f"level_{state}"] = (_np(unshard_vertex_values(mgg, lab)), moves, ovf)
+        s, d, w = mg_community.mg_decompress_to_edgelist(mesh, mgg)
+        r["edges"] = (_np(s), _np(d), None if w is None else _np(w))
+        comm[name] = r
+    out["community"] = comm
+    out["launches_after"] = _launches()
+    return out
+
+
+def run_service(rank: int, shape, csv_path: str) -> dict:
+    """The service handler on every rank of the group, each rank making
+    the same calls: the single-device results, then distribute_graph on
+    ``shape`` and the MG-routed results; a shape that does not cover the
+    world, and the MG sampler, must raise."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.service import CugraphHandler
+
+    h = CugraphHandler(device="cpu")
+    h.load_csv_as_edge_data(csv_path, vertex_col_names=["src", "dst"])
+    calls = {
+        "pagerank": lambda: h.pagerank(tol=1e-8),
+        "bfs": lambda: h.bfs(0),
+        "sssp": lambda: h.sssp(0),
+        "wcc": lambda: h.wcc(),
+        "katz": lambda: h.katz_centrality(alpha=0.05, tol=1e-8),
+    }
+    out = {"sg": {k: fn() for k, fn in calls.items()}}
+    world = dist.get_world_size()
+    try:
+        h.distribute_graph(mesh_shape=[world + 1, 1])
+        out["bad_shape_raised"] = False
+    except ct.utils.error.GraphError:
+        out["bad_shape_raised"] = True
+    out["info"] = h.distribute_graph(mesh_shape=list(shape))
+    out["mg"] = {k: fn() for k, fn in calls.items()}
+    try:
+        h.uniform_neighbor_sample([0], [4])
+        out["sample"] = "returned"
+    except NotImplementedError as exc:
+        out["sample"] = str(exc)
+    out["own_group"] = h._own_group
+    return out
+
+
+def run_service_own_group(rank: int, csv_path: str) -> dict:
+    """With no process group up, distribute_graph starts a one-rank gloo
+    group on localhost; CugraphTpuServer.stop ends it."""
+    from cugraph_tpu_torch.service import CugraphTpuServer
+
+    dist.destroy_process_group()
+    server = CugraphTpuServer(port=0, device="cpu")
+    h = server.handler
+    h.load_csv_as_edge_data(csv_path, vertex_col_names=["src", "dst"])
+    sg = h.pagerank(tol=1e-8)
+    info = h.distribute_graph()
+    out = {"info": info, "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "sg": sg, "mg": h.pagerank(tol=1e-8), "own_group": h._own_group}
+    server.start()
+    server.stop()
+    out["up_after_stop"] = dist.is_initialized()
     return out

@@ -13,6 +13,13 @@
 3. The JAX names' parameters: ``bfs``'s positional ``direction_optimizing``,
    ``rmat_edgelist``'s ``clip_and_flip``, the per_v prims' ``init``, and the
    ``prims`` exports.
+4. Vertex ids from a caller: every entry point that takes them
+   (``pagerank``'s personalization, the similarity pairs, the starts of
+   the sampler, the walks and node2vec, ``extract_bfs_paths``'
+   destinations, ``mg_pagerank``'s personalization) raises ``GraphError``
+   on an id outside [0, V) before any gather or ``index_add_`` reads it;
+   the JAX package's silent results are pinned beside each raise.
+   ``modularity`` takes any integer labels and gives networkx's Q.
 """
 
 import types
@@ -23,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist_worker as worker
 import cugraph_tpu as cg
 import cugraph_tpu_torch as ct
 from cugraph_tpu import prims as jprims
@@ -300,3 +308,105 @@ def test_logical_or_and_update_v_frontier_as_jax():
     tn, tv = tprims.update_v_frontier(touched, None, torch.from_numpy(flag), v_op)
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# ------------------------------------------------------ caller vertex ids
+
+
+def _karate_pair():
+    from cugraph_tpu.testing import karate_edgelist
+
+    s, d, _ = karate_edgelist()
+    return (cg.from_edgelist(s, d, None, symmetrize=True),
+            ct.from_edgelist(s, d, None, symmetrize=True, device="cpu"))
+
+
+BAD_IDS = [34, 40, -1]
+
+
+@pytest.mark.parametrize("bad", BAD_IDS)
+def test_pagerank_personalization_out_of_range(bad):
+    jg, tg = _karate_pair()
+    pers = ([0, bad], [1.0, 1.0])
+    got, _ = cg.pagerank(jg, personalization=pers)
+    got = np.asarray(got)
+    # JAX answers without a word: ids past V drop out, -1 lands elsewhere
+    assert np.isfinite(got).all() and abs(got.sum() - 1.0) < 1e-4
+    if bad >= 34:
+        alone, _ = cg.pagerank(jg, personalization=([0], [1.0]))
+        np.testing.assert_array_equal(got, np.asarray(alone))
+    with pytest.raises(ct.utils.error.GraphError, match="personalization"):
+        ct.pagerank(tg, personalization=pers)
+
+
+@pytest.mark.parametrize("kind", ["jaccard", "sorensen", "overlap", "cosine"])
+@pytest.mark.parametrize("bad", BAD_IDS)
+def test_similarity_pairs_out_of_range(kind, bad):
+    jg, tg = _karate_pair()
+    pairs = (np.array([0, 1]), np.array([bad, 2]))
+    *_, coeff = getattr(cg, kind)(jg, pairs=pairs)
+    assert float(np.asarray(coeff)[0]) == 0.0  # JAX: a coefficient of 0 for the bad pair
+    with pytest.raises(ct.utils.error.GraphError, match="pairs"):
+        getattr(ct, kind)(tg, pairs=pairs)
+    with pytest.raises(ct.utils.error.GraphError, match="pairs"):
+        getattr(ct, kind)(tg, pairs=(pairs[1], pairs[0]))
+
+
+@pytest.mark.parametrize("bad", BAD_IDS)
+def test_sample_and_walk_starts_out_of_range(bad):
+    jg, tg = _karate_pair()
+    # JAX answers every bad start without a word; from 40 it samples no
+    # edge, and its walks stand at 40, then -1
+    res = cg.uniform_neighbor_sample(jg, [bad], [2, 2])
+    if bad == 40:
+        assert np.asarray(res["sources"]).size == np.asarray(res["destinations"]).size == 0
+    for fn in (cg.random_walks, cg.node2vec):
+        walks, _ = fn(jg, [bad], 3)
+        if bad == 40:
+            np.testing.assert_array_equal(np.asarray(walks), [[bad, -1, -1, -1]])
+    gen = torch.Generator().manual_seed(0)
+    # -1 marks an empty slot among the sampler's starts (its later hops'
+    # frontiers hold it too), so -2 stands for a negative id there
+    sample_bad = -2 if bad == -1 else bad
+    for call in (lambda: ct.uniform_neighbor_sample(tg, [0, sample_bad], [2, 2], generator=gen),
+                 lambda: ct.random_walks(tg, [bad], 3, generator=gen),
+                 lambda: ct.random_walks(tg, [bad], 3, biased=True, generator=gen),
+                 lambda: ct.node2vec(tg, [bad], 3, generator=gen)):
+        with pytest.raises(ct.utils.error.GraphError, match="start_vertices"):
+            call()
+
+
+def test_extract_bfs_paths_destination_out_of_range():
+    _, tg = _karate_pair()
+    dist, pred = ct.bfs(tg, 0)
+    with pytest.raises(ct.utils.error.GraphError, match="destinations"):
+        ct.extract_bfs_paths(tg, dist, pred, [3, 34])
+
+
+@pytest.mark.parametrize("shift", [0, 100, -5, 1 << 40])
+def test_modularity_takes_any_integer_labels(shift):
+    """The port's Q equals networkx's for the karate clubs under any
+    shift of their two labels; JAX's segment sum drops the Sigma of labels
+    outside [0, V) and reports 0.859 for the clubs + 100."""
+    import networkx as nx
+
+    jg, tg = _karate_pair()
+    G = nx.karate_club_graph()
+    clubs = np.array([G.nodes[i]["club"] != "Mr. Hi" for i in range(34)], np.int64)
+    want = nx.algorithms.community.modularity(
+        G, [set(np.flatnonzero(clubs == c)) for c in (0, 1)], weight=None)
+    labels = clubs + shift
+    assert abs(ct.modularity(tg, labels) - want) < 1e-6
+    assert abs(ct.analyze_clustering_modularity(tg, labels) - want) < 1e-6
+    if shift == 100:
+        assert abs(float(cg.modularity(jg, labels.astype(np.int32))) - 0.859) < 1e-3
+    if shift == 0:
+        assert abs(float(cg.modularity(jg, labels.astype(np.int32))) - want) < 1e-6
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_mg_pagerank_personalization_out_of_range(shape):
+    """Every rank raises, where the MG ranks used to drop the id (as JAX's
+    MG PageRank does)."""
+    for r in worker.spawn(worker.run_bad_personalization, shape[0] * shape[1], shape):
+        assert r == {"34": True, "-1": True, "in_range_sum": pytest.approx(1.0, abs=1e-4)}

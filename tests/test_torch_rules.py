@@ -21,7 +21,8 @@ import torch
 
 import _torch_dist_worker as worker
 import cugraph_tpu_torch as ct
-from cugraph_tpu_torch import api, experimental, gnn
+from cugraph_tpu_torch import api, experimental, gnn, service
+from cugraph_tpu_torch.examples import community_detection, train_graphsage
 from cugraph_tpu_torch.core.renumber import NumberMap
 from cugraph_tpu_torch.core.serialize import deserialize_graph, load_graph
 from cugraph_tpu_torch import dist as ctd
@@ -66,7 +67,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "api/algorithms.py", "api/nx_compat.py", "api/property_graph.py",
                 "api/__init__.py", "testing/datasets.py", "experimental/datasets.py",
                 "experimental/compat_nx.py", "gnn/loader.py", "gnn/graph_store.py",
-                "gnn/pyg_store.py", "dist/mg_gnn.py"):
+                "gnn/pyg_store.py", "dist/mg_gnn.py", "dist/mg_community.py",
+                "service/server.py", "service/client.py", "examples/train_graphsage.py",
+                "examples/community_detection.py"):
         assert ROOT / "cugraph_tpu_torch" / mod in files
     bad = [
         (str(f.relative_to(ROOT)), mod)
@@ -134,6 +137,17 @@ ENTRY_POINTS = {
     "mg_eigenvector_centrality": lambda: ctd.mg_algos.mg_eigenvector_centrality(
         _CARD_MESH, _mg_graph()),
     "mg_hits": lambda: ctd.mg_algos.mg_hits(_CARD_MESH, _mg_graph()),
+    "mg_wcc": lambda: ctd.mg_algos.mg_wcc(_CARD_MESH, _mg_graph()),
+    "mg_core_number": lambda: ctd.mg_algos.mg_core_number(_CARD_MESH, _mg_graph()),
+    "mg_extract_bfs_paths": lambda: ctd.mg_algos.mg_extract_bfs_paths(
+        _CARD_MESH, _mg_graph(), None, None, [0]),
+    "mg_modularity": lambda: ctd.mg_community.mg_modularity(_CARD_MESH, _mg_graph(), [0] * 4),
+    "mg_louvain": lambda: ctd.mg_community.mg_louvain(_CARD_MESH, _mg_graph()),
+    "mg_leiden": lambda: ctd.mg_community.mg_leiden(_CARD_MESH, _mg_graph()),
+    "CugraphHandler": lambda: service.CugraphHandler(),
+    "CugraphTpuServer": lambda: service.CugraphTpuServer(port=0),
+    "examples.train_graphsage": lambda: train_graphsage.main(["--scale", "4", "--steps", "1"]),
+    "examples.community_detection": lambda: community_detection.main([]),
 }
 _CARD_MESH = types.SimpleNamespace(shape=(1, 1), rows=1, cols=1, i=0, j=0,
                                    device=torch.device("cuda"))
@@ -147,7 +161,7 @@ def _mg_graph():
 
     part = Partition2D.create(1, 1, 4)
     return types.SimpleNamespace(partition=part, vp=part.vp, num_vertices=4, rows=1, cols=1,
-                                 weighted=False)
+                                 weighted=False, is_symmetric=True)
 
 
 def _property_graph():
@@ -275,10 +289,21 @@ def _exported_names(path):
     return names
 
 
+def _public_functions(path):
+    """The public functions a module defines at its top level."""
+    return {node.name for node in ast.parse(path.read_text(), filename=str(path)).body
+            if isinstance(node, ast.FunctionDef) and not node.name.startswith("_")}
+
+
 @pytest.mark.parametrize("package, port", [("__init__.py", ct), ("api/__init__.py", api),
-                                           ("gnn/__init__.py", gnn)])
+                                           ("gnn/__init__.py", gnn),
+                                           ("service/__init__.py", service),
+                                           ("dist/mg_community.py", ctd.mg_community)])
 def test_every_jax_export_exists_in_the_port(package, port):
-    names = _exported_names(ROOT / "cugraph_tpu" / package)
+    if package.endswith("__init__.py"):
+        names = _exported_names(ROOT / "cugraph_tpu" / package)
+    else:  # a module: the functions it defines
+        names = _public_functions(ROOT / "cugraph_tpu" / package)
     assert len(names) > 3
     if port is ct:
         assert "__version__" in names and ct.__version__
