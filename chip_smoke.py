@@ -44,7 +44,8 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
 6. Weighted path on the same graph with weights in (0, 1]: spmv_sum and
    spmv_minplus checked and timed on its CSC, then katz, eigenvector,
    hits, pagerank(tol=0, 20 iterations), sssp(0), betweenness and edge
-   betweenness (k=8), degree centrality and extract_bfs_paths, each
+   betweenness (k=8, spmm_rows a level), degree centrality and
+   extract_bfs_paths, each
    with its launch counters set to 0 just before and read just after,
    and each held against a float64 (or, for SSSP, bit-exact f32)
    reference computed here from the plain versions.
@@ -130,14 +131,32 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    mg_sssp(0), mg_katz_centrality, mg_eigenvector_centrality and mg_hits,
    each with its launch counts, held against the single-device sssp
    (equal distances and predecessors), katz, eigenvector and hits.
-13. Service path: a CugraphTpuServer on localhost over the scale-18 R-MAT
+13. MG analytics path on its own 1 x 1 NCCL mesh, each call against the
+   port's single-device result on the same graph, counters set to 0 just
+   before and read just after each: at SMALL_SCALE, symmetrized and
+   weighted, mg_triangle_count (equal per vertex to triangle_count) and
+   mg_jaccard, mg_sorensen and mg_overlap, plain and weighted, on 2^16
+   seeded pairs (within 1e-6); an MGPropertyGraph of those edges behind a
+   GraphStore, sample_neighbors ([10] from 1,024 seeds, "in" and "out"),
+   every edge an edge of the frame; at the main scale, weighted:
+   mg_uniform_neighbor_sample [25, 10] from 1,024 seeds without and with
+   replacement, "replicate" and "shuffle" equal for one generator seed,
+   every edge an edge with its weight, min(K, degree) slots a row,
+   distinct without replacement; mg_random_walks 2^14 x 80 (every step an
+   edge, -1 after a sink); mg_betweenness and mg_edge_betweenness (k = 8)
+   within 1e-5 of the single-device ones, with as many spmm_rows launches
+   (Brandes' sweeps, the 8 sources one block), and within 1e-4 of the
+   float64 reference_brandes. First-call and warm seconds, idle shares,
+   peak bytes.
+14. Service path: a CugraphTpuServer on localhost over the scale-18 R-MAT
    edges (each once) as a CSV in a temporary directory; PageRank, BFS,
    SSSP, WCC and Katz through CugraphTpuClient, each equal to the port's
    api.algorithms call on a Graph of the same frame and timed beside it;
    distribute_graph([1, 1]) (the handler's own one-rank NCCL group, ended
    by the server's stop), the MG-routed results against the single-device
-   ones, the MG sampler's NotImplementedError.
-14. Examples path: cugraph_tpu_torch.examples.train_graphsage and
+   ones, and one MG-routed uniform_neighbor_sample request, its edges
+   edges of the frame.
+15. Examples path: cugraph_tpu_torch.examples.train_graphsage and
    community_detection through their main() at their default sizes, and
    the trainer again at scale 18, where its blocks take spmm_rows; the
    trainer's loss must fall.
@@ -288,6 +307,19 @@ MG_CENTRALITY_ITERATIONS = 100
 # modularity of their labels
 TOL_MG_Q = 1e-5
 MG_PATH_DESTINATIONS = 1024  # mg_extract_bfs_paths in the MG path
+# the MG analytics path: similarity on 2^16 seeded pairs (half edges),
+# each coefficient against the single-device one (the same exact counts,
+# the same float64 weight sums but summed in another order, one f32
+# division), absolute; walks of node2vec's length; sampled betweenness as
+# in the weighted path, against the single-device run on the same sources
+# (the same f32 terms summed in another order); the GNN store's fanout
+MG_PAIRS = 1 << 16
+TOL_MG_SIMILARITY = 1e-6
+MG_WALKERS = 1 << 14
+MG_WALK_LENGTH = 80
+MG_BC_K = 8
+TOL_MG_BETWEENNESS_REL = 1e-5
+MG_STORE_FANOUT = 10
 SERVICE_SCALE = 18  # the service path's R-MAT edge CSV
 EXAMPLE_SPARSE_SCALE = 18  # the example trainer's blocks above DENSE_MAX_VERTICES
 
@@ -1366,6 +1398,8 @@ def weighted_path(g, seed: int) -> dict:
     for name in ("katz", "eigenvector", "hits", "pagerank"):
         require(launches[name]["spmv_sum"] > 0, f"spmv_sum was not launched by {name}")
     require(launches["sssp"]["spmv_minplus"] > 0, "spmv_minplus was not launched by sssp")
+    for name in ("betweenness", "edge_betweenness"):
+        require(launches[name]["spmm_rows"] > 0, f"spmm_rows was not launched by {name}")
     out = dict(seconds=seconds, launches=launches)
 
     # Katz, eigenvector, HITS, PageRank: the same iterations in float64
@@ -3100,6 +3134,248 @@ def mg_weighted_path(g, seed: int) -> dict:
     return out
 
 
+# -------------------------------------------------- MG analytics path
+
+
+def check_mg_sample(g, seeds, res, fanouts, with_replacement) -> dict:
+    """The MG sampler's compressed result on the graph ``g``: every edge
+    an edge with its weight, hops in order; hop h holds, frontier row by
+    row, min(K, deg) slots of each row's vertex (K if deg > 0, with
+    replacement), the next frontier is hop h's destinations; without
+    replacement no row takes an edge id twice."""
+    adj = g.csr()
+    keys = sorted_edge_keys(adj)
+    deg = adj.degrees().long()
+    src, dst, w, eid, hop = (res[k] for k in ("sources", "destinations", "weights", "edge_ids",
+                                               "hop"))
+    require(bool((hop[1:] >= hop[:-1]).all()), "MG sample: hops out of order")
+    mult, lo = edge_multiplicity(keys, src, dst, adj.num_minors)
+    require(bool((mult > 0).all()), "MG sample: a sampled edge is not in the graph")
+    if w is not None:
+        require(weights_match(adj, lo, mult, w), "MG sample: sampled weights are not the edges'")
+    frontier, counts = seeds.long(), []
+    for h, k in enumerate(fanouts):
+        per_row = deg[frontier].clamp(max=k) if not with_replacement else (deg[frontier] > 0) * k
+        in_hop = hop == h
+        counts.append(int(in_hop.sum()))
+        require(counts[-1] == int(per_row.sum()), f"MG sample hop {h}: slots != min(K, deg)")
+        row = torch.arange(frontier.numel(), device=DEV).repeat_interleave(per_row)
+        require(torch.equal(src[in_hop].long(), frontier[row]),
+                f"MG sample hop {h}: a slot's source is not its frontier vertex")
+        if not with_replacement:
+            pair = torch.unique(row * (1 << 40) + eid[in_hop])
+            require(pair.numel() == counts[-1], f"MG sample hop {h}: a row took an edge twice")
+        frontier = dst[in_hop].long()
+    return dict(edges_by_hop=counts)
+
+
+def check_mg_walks(g, starts, walks) -> dict:
+    """Every step an edge, or -1 after a sink (a vertex of out-degree 0)
+    and -1 from then on."""
+    adj = g.csr()
+    keys = sorted_edge_keys(adj)
+    deg = adj.degrees()
+    require(torch.equal(walks[:, 0], starts.to(walks.dtype)), "MG walks: starts")
+    a, b = walks[:, :-1], walks[:, 1:]
+    dead = b < 0
+    require(bool((dead[:, 1:] >= dead[:, :-1]).all()), "MG walks: a walk came back after -1")
+    live = ~dead
+    mult, _ = edge_multiplicity(keys, a[live], b[live], adj.num_minors)
+    require(bool((mult > 0).all()), "MG walks: a step is not an edge")
+    ended = dead & (a >= 0)
+    require(bool((deg[a[ended].long()] == 0).all()), "MG walks: a walk ended at a vertex with edges")
+    return dict(steps=int(live.sum()), ended=int(dead[:, -1].sum()))
+
+
+def seeded_pairs(g, n: int, seed: int):
+    """n seeded pairs on ``g``'s card: half its CSR edges, half drawn
+    vertex pairs."""
+    adj = g.csr()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    e = torch.randint(0, adj.num_edges, (n // 2,), generator=gen, device=DEV)
+    r = torch.randint(0, g.num_vertices, (2, n - n // 2), generator=gen, device=DEV)
+    return (torch.cat([adj.majors[e].long(), r[0]]), torch.cat([adj.minors[e].long(), r[1]]))
+
+
+def mg_analytics_path(scale: int, small_scale: int, seed: int) -> dict:
+    """Phase 13: the MG modules of the last slice on a 1 x 1 NCCL mesh,
+    each against the port's single-device result on the same graph, each
+    with the counters set to 0 just before and read just after:
+
+    - at ``small_scale``, symmetrized and weighted: mg_triangle_count equal
+      to triangle_count per vertex; mg_jaccard, mg_sorensen and mg_overlap
+      on MG_PAIRS seeded pairs (half edges), plain and weighted, within
+      TOL_MG_SIMILARITY of jaccard, sorensen and overlap;
+    - at ``scale`` (the weighted main graph): mg_uniform_neighbor_sample
+      SAMPLE_FANOUTS from SAMPLE_STARTS seeds, without and with
+      replacement, "replicate" and "shuffle" equal for one generator
+      seed, each checked by check_mg_sample; mg_random_walks of
+      MG_WALKERS x MG_WALK_LENGTH (check_mg_walks); mg_betweenness and
+      mg_edge_betweenness (k = MG_BC_K, ``seed``) within
+      TOL_MG_BETWEENNESS_REL of the single-device ones, with as many
+      spmm_rows launches, and within TOL_BETWEENNESS_REL of the float64
+      ``reference_brandes`` on the same sources;
+    - at ``small_scale``: an MGPropertyGraph of the edges as a frame,
+      GraphStore.sample_neighbors ([MG_STORE_FANOUT] from SAMPLE_STARTS
+      seeds, "in" and "out"), every edge an edge of the frame.
+
+    First-call and warm seconds, idle shares and each phase's peak
+    bytes."""
+    import numpy as np
+    import pandas as pd
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.algos.centrality import sample_sources
+    from cugraph_tpu_torch.dist import distribute_edgelist, distribute_graph
+    from cugraph_tpu_torch.dist import mg_centrality, mg_sampling, mg_similarity
+    from cugraph_tpu_torch.dist.mg_property_graph import MGPropertyGraph
+    from cugraph_tpu_torch.gnn import GraphStore
+    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    seconds, launches, peak, results = {}, {}, {}, {}
+
+    def run(name, fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        results[name] = fn()
+        sync()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = {n: c.launches for n, c in counters.items()}
+        peak[name] = torch.cuda.max_memory_allocated()
+
+    out = {}
+    with one_rank_mesh() as mesh:
+        # the small graph: symmetrized, weighted
+        src, dst, v_small = rmat_edges(small_scale, seed)
+        wgen = torch.Generator(device=DEV).manual_seed(seed + 5)
+        w = 1.0 - torch.rand(src.numel(), generator=wgen, device=DEV)
+        gs = ct.from_edgelist(src, dst, w, num_vertices=v_small, symmetrize=True, device=DEV)
+        t = time.perf_counter()
+        mgs = distribute_edgelist(mesh, src, dst, w, num_vertices=v_small, symmetrize=True)
+        sync()
+        seconds["mg_graph_small"] = time.perf_counter() - t
+        frame = pd.DataFrame({"src": src.cpu().numpy(), "dst": dst.cpu().numpy()})
+        del src, dst, w
+        pairs = seeded_pairs(gs, MG_PAIRS, seed)
+        phases = {"mg_triangle_count": lambda: mg_similarity.mg_triangle_count(mesh, mgs)}
+        for kind in ("jaccard", "sorensen", "overlap"):
+            for wt in (False, True):
+                phases[f"mg_{kind}{'_weighted' if wt else ''}"] = (
+                    lambda kind=kind, wt=wt: mg_similarity.mg_similarity(mesh, mgs, pairs, kind, wt))
+        for name, fn in phases.items():
+            run(name, fn)
+        run("triangle_count", lambda: ct.triangle_count(gs))
+        require(torch.equal(results["mg_triangle_count"], results["triangle_count"].long()),
+                "mg_triangle_count differs from triangle_count")
+        out["triangles"] = dict(total=int(results["triangle_count"].long().sum()) // 3,
+                                vertices=v_small, edges=gs.num_edges)
+        sim = {}
+        for kind in ("jaccard", "sorensen", "overlap"):
+            for wt in (False, True):
+                name = f"mg_{kind}{'_weighted' if wt else ''}"
+                want = getattr(ct, kind)(gs, pairs, use_weight=wt)[2]
+                err = (results[name] - want).abs().max().item()
+                require(err <= TOL_MG_SIMILARITY, f"{name} error {err} > {TOL_MG_SIMILARITY}")
+                sim[name] = err
+        out["similarity_max_abs_err"] = sim
+        warm = warm_breakdown(phases)
+
+        # the MG store over the small graph's edges as a frame
+        pg = MGPropertyGraph(mesh)
+        t = time.perf_counter()
+        pg.add_edge_data(frame, ("src", "dst"))
+        seconds["mg_property_graph_add_edge_data"] = time.perf_counter() - t
+        store = GraphStore(pg, device=DEV)
+        ids = torch.from_numpy(frame["src"].to_numpy().copy())
+        pick = torch.randint(0, ids.numel(), (SAMPLE_STARTS,),
+                             generator=torch.Generator().manual_seed(seed + 6))
+        store_seeds = ids[pick].to(DEV)  # vertices with an out-edge, ids of the frame
+        edge_keys = torch.from_numpy(np.unique(frame["src"].to_numpy().astype(np.int64) * v_small
+                                               + frame["dst"].to_numpy())).to(DEV)
+        store_phases = {}
+        for edge_dir in ("in", "out"):
+            store_phases[f"store_sample_{edge_dir}"] = (
+                lambda edge_dir=edge_dir: store.sample_neighbors(
+                    store_seeds, fanout=MG_STORE_FANOUT, edge_dir=edge_dir,
+                    generator=torch.Generator(device=DEV).manual_seed(seed)))
+        for name, fn in store_phases.items():
+            run(name, fn)
+            df = results[name]
+            probe = torch.from_numpy(df["sources"].to_numpy().astype(np.int64) * v_small
+                                     + df["destinations"].to_numpy()).to(DEV)
+            pos = torch.searchsorted(edge_keys, probe).clamp(max=edge_keys.numel() - 1)
+            require(len(df) > 0 and bool((edge_keys[pos] == probe).all()),
+                    f"{name}: a sampled edge is not an edge of the frame")
+            out[name] = dict(edges=len(df))
+        warm.update(warm_breakdown(store_phases))
+        del gs, mgs, pg, store, frame, edge_keys, store_phases
+        torch.cuda.empty_cache()
+
+        # the main graph, weighted
+        g = rmat_graph(scale, seed, weighted=True)
+        t = time.perf_counter()
+        mgg = distribute_graph(mesh, g)
+        sync()
+        seconds["mg_graph"] = time.perf_counter() - t
+        gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+        seeds = torch.randint(0, g.num_vertices, (SAMPLE_STARTS,), generator=gen, device=DEV)
+        walk_starts = torch.randint(0, g.num_vertices, (MG_WALKERS,), generator=gen, device=DEV)
+        main_phases = {}
+        for repl in (False, True):
+            for method in ("replicate", "shuffle"):
+                main_phases[f"mg_sample_{method}{'_replace' if repl else ''}"] = (
+                    lambda method=method, repl=repl: mg_sampling.mg_uniform_neighbor_sample(
+                        mesh, mgg, seeds, SAMPLE_FANOUTS, with_replacement=repl, method=method,
+                        generator=torch.Generator(device=DEV).manual_seed(seed)))
+        main_phases["mg_random_walks"] = lambda: mg_sampling.mg_random_walks(
+            mesh, mgg, walk_starts, MG_WALK_LENGTH,
+            generator=torch.Generator(device=DEV).manual_seed(seed))
+        main_phases["mg_betweenness"] = lambda: mg_centrality.mg_betweenness_centrality(
+            mesh, g, k=MG_BC_K, seed=seed)
+        main_phases["mg_edge_betweenness"] = lambda: mg_centrality.mg_edge_betweenness_centrality(
+            mesh, g, k=MG_BC_K, seed=seed)
+        for name, fn in main_phases.items():
+            run(name, fn)
+        run("betweenness", lambda: ct.betweenness_centrality(g, k=MG_BC_K, seed=seed))
+        run("edge_betweenness", lambda: ct.edge_betweenness_centrality(g, k=MG_BC_K, seed=seed))
+        for repl in (False, True):
+            suffix = "_replace" if repl else ""
+            a, b = results[f"mg_sample_replicate{suffix}"], results[f"mg_sample_shuffle{suffix}"]
+            for key in ("sources", "destinations", "weights", "edge_ids", "hop"):
+                require(torch.equal(a[key], b[key]),
+                        f"mg sample{suffix}: replicate and shuffle differ in {key}")
+            out[f"mg_sample{suffix}"] = check_mg_sample(g, seeds, a, SAMPLE_FANOUTS, repl)
+        out["mg_random_walks"] = check_mg_walks(g, walk_starts, results["mg_random_walks"])
+        v = g.num_vertices
+        delta, edge = reference_brandes(g, sample_sources(v, MG_BC_K, seed, DEV))
+        refs = {"betweenness": delta * (v / MG_BC_K) / ((v - 1) * (v - 2)),
+                "edge_betweenness": edge * (v / MG_BC_K) / (v * (v - 1))}
+        for name in ("betweenness", "edge_betweenness"):
+            err = rel_err(results[f"mg_{name}"], results[name].double())
+            require(err <= TOL_MG_BETWEENNESS_REL,
+                    f"mg_{name} error {err} > {TOL_MG_BETWEENNESS_REL}")
+            ref_err = rel_err(results[f"mg_{name}"], refs[name])
+            require(ref_err <= TOL_BETWEENNESS_REL,
+                    f"mg_{name} error {ref_err} against float64 > {TOL_BETWEENNESS_REL}")
+            n_mg, n_sg = launches[f"mg_{name}"]["spmm_rows"], launches[name]["spmm_rows"]
+            require(n_mg > 0 and n_mg == n_sg,
+                    f"mg_{name} launched spmm_rows {n_mg} times, the single-device one {n_sg}")
+            out[f"mg_{name}"] = dict(rel_err=err, float64_rel_err=ref_err, spmm_rows=n_mg)
+        warm.update(warm_breakdown(main_phases))
+    log(f"mg analytics path seconds: {json.dumps(seconds)}")
+    log(f"mg analytics path launches: {json.dumps(launches)}")
+    log(f"mg analytics path peak bytes: {json.dumps(peak)}")
+    out.update(seconds=seconds, peak_bytes=peak, warm=warm,
+               launches={k: v for k, v in launches.items() if k.startswith(("mg_", "store_"))},
+               single_device_launches={k: v for k, v in launches.items()
+                                       if not k.startswith(("mg_", "store_"))})
+    log(f"mg analytics path checks: {json.dumps({k: out[k] for k in out if k not in ('seconds', 'peak_bytes', 'warm', 'launches', 'single_device_launches')})}")
+    return out
+
+
 # ------------------------------------------------ one-rank NCCL groups
 
 
@@ -3284,7 +3560,9 @@ def service_path(scale: int, seed: int) -> dict:
     port's api.algorithms call on a Graph built from the same frame
     (timed beside it); then distribute_graph([1, 1]) (the handler starts
     its own one-rank NCCL group) and the MG-routed results against the
-    single-device ones, and the MG sampler's NotImplementedError."""
+    single-device ones, and one MG-routed uniform_neighbor_sample request
+    (SAMPLE_FANOUTS from the frame's first SAMPLE_STARTS sources), each of
+    its edges an edge of the frame."""
     import os
     import tempfile
 
@@ -3293,7 +3571,7 @@ def service_path(scale: int, seed: int) -> dict:
 
     from cugraph_tpu_torch import api
     from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
-    from cugraph_tpu_torch.service import CugraphServiceError, CugraphTpuClient, CugraphTpuServer
+    from cugraph_tpu_torch.service import CugraphTpuClient, CugraphTpuServer
 
     counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
     src, dst, v = rmat_edges(scale, seed)
@@ -3361,14 +3639,21 @@ def service_path(scale: int, seed: int) -> dict:
                     out[f"mg_{name}_rel_err"] = err
                 else:
                     require(np.array_equal(a, b), f"mg {name} differs from the single-device one")
-            try:
-                client.call("uniform_neighbor_sample", [0], [4])
-                sample = "returned"
-            except CugraphServiceError as exc:
-                sample = str(exc)
-            require("NotImplementedError" in sample and "mg_sampling" in sample,
-                    f"the MG sampler must raise: {sample}")
-            out["mg_sample"] = sample
+            starts = frame["src"].iloc[:SAMPLE_STARTS].to_numpy()
+            for c in counters.values():
+                c.launches = 0
+            t = time.perf_counter()
+            sample = client.call("uniform_neighbor_sample", starts.tolist(), list(SAMPLE_FANOUTS))
+            seconds["mg_uniform_neighbor_sample_request"] = time.perf_counter() - t
+            launches["mg_uniform_neighbor_sample"] = {n: c.launches for n, c in counters.items()}
+            keys = np.unique(frame["src"].to_numpy().astype(np.int64) * v
+                             + frame["dst"].to_numpy())
+            probe = (np.asarray(sample["sources"], dtype=np.int64) * v
+                     + np.asarray(sample["destinations"], dtype=np.int64))
+            pos = np.searchsorted(keys, probe).clip(max=len(keys) - 1)
+            require(len(probe) > 0 and bool((keys[pos] == probe).all()),
+                    "an MG-routed sampled edge is not an edge of the frame")
+            out["mg_sample"] = dict(edges=len(probe))
         finally:
             server.stop()
     import torch.distributed as dist
@@ -3552,7 +3837,15 @@ def main() -> int:
     log(f"mg weighted path: {mwpath['path_s']:.1f} s")
     torch.cuda.empty_cache()
 
-    # 13. the service over HTTP on localhost, then the example scripts
+    # 13. the MG analytics path: similarity, triangles, sampling, walks,
+    # betweenness and the MG GNN store
+    t = time.perf_counter()
+    mapath = mg_analytics_path(args.scale, min(SMALL_SCALE, args.scale), args.seed)
+    mapath["path_s"] = time.perf_counter() - t
+    log(f"mg analytics path: {mapath['path_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 14. the service over HTTP on localhost, then (15.) the example scripts
     t = time.perf_counter()
     svpath = service_path(min(SERVICE_SCALE, args.scale), args.seed)
     svpath["path_s"] = time.perf_counter() - t
@@ -3582,6 +3875,7 @@ def main() -> int:
         by_path["api_path"] = on_path(name, apath["launches"])
         by_path["train_path"] = on_path(name, tpath["launches"])
         by_path["mg_weighted_path"] = on_path(name, mwpath["launches"])
+        by_path["mg_analytics_path"] = on_path(name, mapath["launches"])
         by_path["fault_path"] = fpath["launches"].get(name, 0)
         by_path["mg_community_path"] = on_path(name, mcpath["launches"])
         by_path["service_path"] = on_path(name, svpath["launches"])
@@ -3600,7 +3894,8 @@ def main() -> int:
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
                       "mg_path": mgp, "weighted_path": wpath, "scan_assemble_path": scan,
                       "sampling_path": spath, "community_path": cpath, "api_path": apath,
-                      "train_path": tpath, "mg_weighted_path": mwpath, "fault_path": fpath,
+                      "train_path": tpath, "mg_weighted_path": mwpath,
+                      "mg_analytics_path": mapath, "fault_path": fpath,
                       "mg_community_path": mcpath, "service_path": svpath,
                       "examples_path": expath, "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -6,12 +6,15 @@ betweenness_centrality*.cu). Katz and eigenvector iterate
 ``pull_aggregate``, the ``spmv_sum`` kernel on the card, and read the L1
 change on the host once per iteration.
 
-Betweenness is Brandes' algorithm batched over sources, in plain torch as
-the JAX package computes it outside any Pallas kernel: the forward BFS and
-the backward dependency sweep are masked edge-centric passes over (S, V)
-state. The JAX package takes every source at once (``vmap``); the port
-takes ``BRANDES_BATCH_SLOTS // E`` sources at a time, which bounds its
-(S, E) temporaries, and sums the batches.
+Betweenness is Brandes' algorithm over a block of S sources at once, one
+column of (V, S) state each: the path counts of a BFS level are one
+``spmm_rows`` launch over the CSC for the whole block, and the
+back-propagated dependencies of a level one over the CSR, where the JAX
+package runs masked edge-centric segment sums (XLA, no Pallas kernel) for
+every source at once (``vmap``). A block holds at most
+``BRANDES_BLOCK`` sources (one warp pass of the kernel's columns) and
+``BRANDES_BATCH_SLOTS`` entries of (V, S) state; edge betweenness reads
+its per-edge values in one edge-centric pass a block, after the sweeps.
 """
 
 from __future__ import annotations
@@ -20,14 +23,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.csr import Graph
-from ..prims.cuda import pull_aggregate
+from ..core.csr import Graph, _build_adj
+from ..prims.cuda import pull_aggregate, spmm_rows
 from ..utils.device import as_tensor
 from ..utils.dtypes import INT32_MAX, VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects
 
-# sources x edges per Brandes batch: each (S, E) temporary is at most
-# 2^27 entries (512 MB in f32)
+# sources a Brandes block at most: the columns of one spmm_rows launch,
+# 128 being one warp pass of csrc/spmm_row.cu
+BRANDES_BLOCK = 128
+# entries of a block's (V, S) state, and of the (edges, S) temporaries of
+# its per-edge pass: 2^27 (512 MB in f32)
 BRANDES_BATCH_SLOTS = 1 << 27
 
 
@@ -98,7 +104,7 @@ def degree_centrality(g: Graph, normalized: bool = True) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Betweenness (Brandes), batched over sources.
+# Betweenness (Brandes), in blocks of sources.
 # ---------------------------------------------------------------------------
 
 
@@ -113,73 +119,104 @@ def sample_sources(num_vertices: int, k: Optional[int], seed: int, device) -> to
     return torch.randperm(num_vertices, generator=gen)[: int(k)].to(VERTEX_DTYPE).to(device)
 
 
-def _brandes_batch(
-    g: Graph, sources: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Dependencies of one batch of distinct sources: (delta (S, V),
-    edge_delta (S, E) in the CSR's edge order, reach (S, V) bool, False at
-    the source). Unweighted shortest paths, as the reference's legacy SG
-    betweenness."""
-    v = g.num_vertices
-    dev = g.device
+def _pull_adj(g: Graph):
+    """The in-adjacency that the forward sweep pulls over: the CSC, or,
+    for a graph stored without one, a CSC built from the CSR once."""
+    if g.in_adj is not None or g.is_symmetric:
+        return g.csc()
     adj = g.csr()
-    src_ids, dst_ids = adj.majors, adj.minors
-    s = sources.numel()
-    rows = torch.arange(s, device=dev)
-    cols = sources.to(torch.int64)
+    return _build_adj(adj.minors, adj.majors, None, g.num_vertices, g.num_vertices)
 
-    dist = torch.full((s, v), INT32_MAX, dtype=VERTEX_DTYPE, device=dev)
-    dist[rows, cols] = 0
-    sigma = torch.zeros(s, v, dtype=WEIGHT_DTYPE, device=dev)
-    sigma[rows, cols] = 1.0
+
+def _brandes_block(g: Graph, pull, sources: torch.Tensor, edges: Optional[str]):
+    """Brandes' sweeps (unweighted shortest paths) from S distinct sources
+    at once, column s for sources[s]. Forward, level by level: sigma_next
+    [w] = sum over in-edges (u, w) of sigma[u] on the frontier, one
+    ``spmm_rows`` over ``pull`` (the CSC) a level. Backward, from the
+    deepest level up: delta[u] = sigma[u] * sum over out-edges (u, w) one
+    level down of (1 + delta[w]) / sigma[w], one ``spmm_rows`` over the CSR
+    a level. Returns (delta (V, S), zero at the sources; the edge
+    dependencies in the CSR's edge order, summed over the block (E,) with
+    ``edges="sum"``, per source (S, E) with ``"each"``, else None; reach
+    (V, S) bool, False at the source)."""
+    v, dev = g.num_vertices, g.device
+    adj = g.csr()
+    s = sources.numel()
+    at = (sources.to(torch.int64), torch.arange(s, device=dev))
+    dist = torch.full((v, s), INT32_MAX, dtype=VERTEX_DTYPE, device=dev)
+    dist[at] = 0
+    sigma = torch.zeros((v, s), dtype=WEIGHT_DTYPE, device=dev)
+    sigma[at] = 1.0
     frontier = dist == 0
     depth = 0
     while bool(frontier.any()):
-        con = frontier.index_select(1, src_ids) & (dist.index_select(1, dst_ids) == INT32_MAX)
-        paths = torch.where(con, sigma.index_select(1, src_ids), 0.0)
-        sig_add = torch.zeros_like(sigma).index_add_(1, dst_ids, paths)
-        del con, paths
-        # every frontier vertex has sigma >= 1, so a vertex is reached
-        # exactly where it receives a positive count
-        frontier = sig_add > 0
+        paths = spmm_rows(pull, torch.where(frontier, sigma, 0.0), use_weights=False)
+        # every frontier vertex has sigma >= 1, so an unvisited vertex is
+        # reached exactly where it receives a positive count
+        frontier = (paths > 0) & (dist == INT32_MAX)
         depth += 1
         dist = torch.where(frontier, depth, dist)
-        sigma += sig_add
-
-    # backward sweep: from the deepest level up, delta[u] += sigma[u] /
-    # sigma[w] * (1 + delta[w]) over edges u -> w with dist[w] = dist[u] + 1
+        sigma = torch.where(frontier, paths, sigma)
     delta = torch.zeros_like(sigma)
-    edge_delta = torch.zeros(s, adj.num_edges, dtype=WEIGHT_DTYPE, device=dev)
     for d in range(depth - 2, -1, -1):
-        on_path = (dist.index_select(1, src_ids) == d) & (dist.index_select(1, dst_ids) == d + 1)
-        ratio = sigma.index_select(1, src_ids) / sigma.index_select(1, dst_ids).clamp(min=1e-30)
-        contrib = torch.where(on_path, ratio * (1.0 + delta.index_select(1, dst_ids)), 0.0)
-        del on_path, ratio
-        edge_delta += contrib  # each edge is on a path at one level only
-        delta.index_add_(1, src_ids, contrib)
-    delta[rows, cols] = 0.0
+        x = torch.where(dist == d + 1, (1.0 + delta) / sigma.clamp(min=1e-30), 0.0)
+        delta = torch.where(dist == d, delta + sigma * spmm_rows(adj, x, use_weights=False), delta)
+    delta[at] = 0.0
     reach = dist != INT32_MAX
-    reach[rows, cols] = False
-    return delta, edge_delta, reach
+    reach[at] = False
+    if edges is None:
+        return delta, None, reach
+    # edge (u, w) is on a shortest path from column s's source where
+    # dist[w] = dist[u] + 1, and carries sigma[u] * (1 + delta[w]) / sigma[w];
+    # a source is never such a w, so its zeroed delta is not read. The pass
+    # gathers from (S, V) copies, so that a run of gathers reads one
+    # source's (V,) values, not rows spread over the whole (V, S) state
+    ratio_t = ((1.0 + delta) / sigma.clamp(min=1e-30)).t().contiguous()
+    dist_t, sigma_t = dist.t().contiguous(), sigma.t().contiguous()
+    out = torch.zeros((s, adj.num_edges) if edges == "each" else adj.num_edges,
+                      dtype=WEIGHT_DTYPE, device=dev)
+    step = max(1, BRANDES_BATCH_SLOTS // s)
+    for lo in range(0, adj.num_edges, step):
+        u, w = adj.majors[lo:lo + step], adj.minors[lo:lo + step]
+        on = dist_t.index_select(1, w) - 1 == dist_t.index_select(1, u)
+        val = torch.where(on, sigma_t.index_select(1, u) * ratio_t.index_select(1, w), 0.0)
+        if edges == "each":
+            out[:, lo:lo + step] = val
+        else:
+            out[lo:lo + step] = val.sum(0)
+    return delta, out, reach
 
 
-def _brandes_sums(g: Graph, sources: torch.Tensor):
-    """Sums over the sources of _brandes_batch, a batch at a time:
-    (delta (V,), edge_delta (E,), sources reaching each vertex (V,),
-    vertices each source reaches (S,))."""
+def _brandes_batch(
+    g: Graph, sources: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dependencies of one block of distinct sources, per source: (delta
+    (S, V), edge_delta (S, E) in the CSR's edge order, reach (S, V) bool,
+    False at the source)."""
+    delta, edge_delta, reach = _brandes_block(g, _pull_adj(g), sources, "each")
+    return delta.t(), edge_delta, reach.t()
+
+
+def _brandes_sums(g: Graph, sources: torch.Tensor, with_edges: bool = True):
+    """Sums over the sources of Brandes' dependencies, a block of
+    ``min(BRANDES_BLOCK, BRANDES_BATCH_SLOTS // V)`` sources at a time:
+    (delta (V,), edge_delta (E,) or None, sources reaching each vertex
+    (V,), vertices each source reaches (S,))."""
     v, e = g.num_vertices, g.num_edges
     dev = g.device
-    batch = max(1, BRANDES_BATCH_SLOTS // max(e, 1))
+    block = max(1, min(BRANDES_BLOCK, BRANDES_BATCH_SLOTS // max(v, 1)))
+    pull = _pull_adj(g)
     delta = torch.zeros(v, dtype=WEIGHT_DTYPE, device=dev)
-    edge_delta = torch.zeros(e, dtype=WEIGHT_DTYPE, device=dev)
+    edge_delta = torch.zeros(e, dtype=WEIGHT_DTYPE, device=dev) if with_edges else None
     reached_by = torch.zeros(v, dtype=torch.int64, device=dev)
     reaches = torch.zeros(sources.numel(), dtype=torch.int64, device=dev)
-    for i in range(0, sources.numel(), batch):
-        d, ed, r = _brandes_batch(g, sources[i : i + batch])
-        delta += d.sum(0)
-        edge_delta += ed.sum(0)
-        reached_by += r.sum(0)
-        reaches[i : i + batch] = r.sum(1)
+    for i in range(0, sources.numel(), block):
+        d, ed, r = _brandes_block(g, pull, sources[i : i + block], "sum" if with_edges else None)
+        delta += d.sum(1)
+        if with_edges:
+            edge_delta += ed
+        reached_by += r.sum(1)
+        reaches[i : i + block] = r.sum(0)
     return delta, edge_delta, reached_by, reaches
 
 
@@ -194,7 +231,7 @@ def betweenness_centrality(
     k sources (``sample_sources``); None takes every vertex."""
     v = g.num_vertices
     sources = sample_sources(v, k, seed, g.device)
-    bc, _, reached_by, reaches = _brandes_sums(g, sources)
+    bc, _, reached_by, reaches = _brandes_sums(g, sources, with_edges=False)
     if endpoints:
         # each reachable (s, t) pair adds 1 to both endpoints
         bc = bc + reached_by

@@ -8,4 +8,4 @@ every vertex array, and runs the port's kernels on its local blocks.
 from .partition import Partition2D
 from .mesh import Mesh2D, initialize_distributed, make_global_mesh, make_mesh, mesh_shape_for
 from .mg_graph import MGGraph, distribute_graph, distribute_edgelist
-from . import mg_prims, mg_algos, mg_gnn, mg_community
+from . import mg_prims, mg_algos, mg_sampling, mg_gnn, mg_community, mg_similarity, mg_centrality

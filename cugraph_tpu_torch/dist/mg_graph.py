@@ -12,13 +12,19 @@ Differences by design: the JAX package stores each rank's edges as
 and its ring gather mode; the port keeps exact lengths in two compressed
 adjacencies. Its vertex values are per-rank (vp, ...) tensors where the
 JAX package holds (R, C, vp, ...) global arrays. The DCSR src-side arrays
-(``src_nzd`` and the rest) are not built: no ported algorithm reads them.
+(``src_nzd`` and the rest, JAX mg_graph.py:60-66) are derived from
+``out_block`` at their first use (``src_dcsr``) and kept in
+``MGGraph.cache``: its edges are already sorted by (span-local src, b * vp
++ local dst), which for the rank's mesh row i is the order of the global
+dst (b * R + i) * vp + local dst, so no second pass over the edges is
+made. They are unpadded; the JAX package's edge-slot stride ``d_pad`` is
+kept for the edge ids, counted at ingest (every rank sees every edge).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -30,6 +36,8 @@ from ..utils.dtypes import VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects
 from .mesh import Mesh2D, all_gather_rows
 from .partition import Partition2D
+
+LANE = 128  # the JAX package pads edge slots to this many lanes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +59,14 @@ class MGGraph:
     vp: int
     num_vertices: int
     num_edges: int  # global
+    # the JAX package's edge slots a rank (mg_graph.py:330-333): the largest
+    # local edge count over the ranks, rounded up to LANE
+    d_pad: int
     is_symmetric: bool = False
-    # what is derived from the blocks once and kept: the ring's sub-blocks
+    # the selected edges' frame of ``MGPropertyGraph.extract_subgraph``
+    edge_data: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
+    # what is derived from the blocks once and kept: the ring's sub-blocks,
+    # the DCSR arrays, the similarity paths' oriented adjacency
     cache: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
 
     @property
@@ -63,6 +77,35 @@ class MGGraph:
     @property
     def weighted(self) -> bool:
         return self.in_block.weights is not None
+
+
+class SrcDcsr(NamedTuple):
+    """The DCSR src-side adjacency of a rank (JAX mg_graph.py:60-66): the
+    sources with at least one local edge, sorted (span-local ids), their
+    offsets and the total, and each edge's global dst (int32) and weight
+    (None unweighted) in that order."""
+
+    src_nzd: torch.Tensor
+    src_nzd_offsets: torch.Tensor
+    src_csr_dsts: torch.Tensor
+    src_csr_weights: Optional[torch.Tensor]
+
+
+def src_dcsr(mesh: Mesh2D, mgg: MGGraph) -> SrcDcsr:
+    """This rank's ``SrcDcsr``, derived from ``out_block`` at the first
+    call and kept in ``mgg.cache``. No collective."""
+    arrays = mgg.cache.get("dcsr")
+    if arrays is None:
+        blk, vp = mgg.out_block, mgg.vp
+        nzd = torch.nonzero(blk.degrees() > 0).reshape(-1).to(VERTEX_DTYPE)
+        minors = blk.minors
+        arrays = mgg.cache["dcsr"] = SrcDcsr(
+            src_nzd=nzd,
+            src_nzd_offsets=torch.cat([blk.offsets[nzd.long()], blk.offsets[-1:]]),
+            src_csr_dsts=((minors // vp * mgg.rows + mesh.i) * vp + minors % vp).to(VERTEX_DTYPE),
+            src_csr_weights=blk.weights,
+        )
+    return arrays
 
 
 ChunkSource = Union[
@@ -127,6 +170,7 @@ def distribute_edgelist_chunks(
 
     srcs, majors, weights = [], [], []
     block_counts = torch.zeros(c, dtype=torch.int64, device=dev)
+    rank_counts = torch.zeros(r * c, dtype=torch.int64, device=dev)
     num_edges = 0
     for chunk in _chunk_iter(chunks):
         src = as_tensor(chunk[0], torch.int64, dev)
@@ -145,6 +189,7 @@ def distribute_edgelist_chunks(
             w = None if w is None else torch.cat([w, w])
         num_edges += src.numel()
         i, j, b = part.edge_block(src, dst)
+        rank_counts += torch.bincount(i * c + j, minlength=r * c)
         mine = (i == mesh.i) & (j == mesh.j)
         b = b[mine]
         srcs.append(src[mine] - mesh.j * span)
@@ -170,6 +215,7 @@ def distribute_edgelist_chunks(
         vp=vp,
         num_vertices=int(num_vertices),
         num_edges=int(num_edges),
+        d_pad=-(-max(int(rank_counts.max()), 1) // LANE) * LANE,
         is_symmetric=bool(is_symmetric or symmetrize),
     )
     if renumber:

@@ -506,3 +506,19 @@ def cluster_weight_sums(
     sigma = torch.zeros(vp, dtype=k_local.dtype, device=dev)
     sigma.index_add_(0, local[ok], pack["k"][ok])
     return sigma, ov
+
+
+def dcsr_lookup(nzd: torch.Tensor, nzd_offsets: torch.Tensor, local_ids: torch.Tensor):
+    """Hypersparse (DCSR) adjacency lookup (JAX mg_prims.py:351; ref the
+    use_dcs() path, major_hypersparse_idx_from_major,
+    edge_partition_device_view.cuh:44-79): (lo, deg) int64 for span-local
+    src ids, by a binary search of the sorted sources ``nzd``. A source
+    absent from ``nzd`` has deg 0, and lo the offset where it would sit."""
+    ids = local_ids.to(nzd.dtype)
+    pos = torch.searchsorted(nzd, ids)
+    lo = nzd_offsets[pos].to(torch.int64)
+    if nzd.numel() == 0:
+        return lo, torch.zeros_like(lo)
+    found = nzd[pos.clamp(max=nzd.numel() - 1)] == ids
+    deg = torch.where(found, nzd_offsets[(pos + 1).clamp(max=nzd.numel())].to(torch.int64) - lo, 0)
+    return lo, deg

@@ -10,9 +10,10 @@ sampling run on the store's device (default: the card).
 Differences by design: features come back as torch tensors on the
 store's device by default (``backend_lib="torch"``) or as numpy arrays;
 ``backend_lib="jax"`` raises. ``sample_neighbors`` takes a
-``torch.Generator`` where the JAX package takes a PRNG key. An
-MG-backed store (the JAX package's ``MGPropertyGraph`` and
-``mg_sampling``) has no counterpart yet: its branch raises.
+``torch.Generator`` where the JAX package takes a PRNG key. A store over
+a ``dist.MGPropertyGraph`` samples on its mesh
+(``dist.mg_sampling.mg_uniform_neighbor_sample``); every rank of the mesh
+then makes the same calls.
 """
 
 from __future__ import annotations
@@ -93,15 +94,18 @@ class GraphStore:
         self.pg = property_graph if property_graph is not None else PropertyGraph()
         self._graph_cache = None
         self._rev_core = None
+        self._mgg = {}  # edge_dir -> the MGGraph an MG-backed store samples
 
     # ---- data ingestion (ref CuGraphStore.add_node_data/add_edge_data) ---
     def add_node_data(self, df: pd.DataFrame, node_col_name: str, node_type: str = ""):
         self.pg.add_vertex_data(df, node_col_name, type_name=node_type)
         self._graph_cache = self._rev_core = None
+        self._mgg = {}
 
     def add_edge_data(self, df: pd.DataFrame, vertex_col_names, edge_type: str = ""):
         self.pg.add_edge_data(df, vertex_col_names, type_name=edge_type)
         self._graph_cache = self._rev_core = None
+        self._mgg = {}
 
     # ---- graph views (ref CuGraphStore :125-148, :320-326) -----------------
     @property
@@ -160,8 +164,8 @@ class GraphStore:
 
     @property
     def is_mg(self) -> bool:
-        """True when the backing tables are an MGPropertyGraph (ref
-        CuGraphStore.is_mg); the port has none yet."""
+        """True when the backing tables are an MGPropertyGraph: sampling
+        then runs on its mesh (ref CuGraphStore.is_mg)."""
         return bool(getattr(self.pg, "is_mg", lambda: False)())
 
     @property
@@ -182,12 +186,10 @@ class GraphStore:
         """edge_dir "in": sample edges INTO the seed nodes (DGL default,
         via the reverse adjacency — ref extracted_reverse_subgraph :287);
         "out": sample outgoing edges. Returns a frame of external ids and
-        hops. An MG-backed store raises NotImplementedError."""
+        hops. An MG-backed store samples on its mesh (``_sample_neighbors_mg``)."""
         if self.is_mg:
-            raise NotImplementedError(
-                "an MG-backed GraphStore needs MGPropertyGraph and mg_sampling, "
-                "which cugraph_tpu_torch.dist does not have yet"
-            )
+            return self._sample_neighbors_mg(nodes, fanout, with_replacement, num_hops,
+                                             edge_dir, generator)
         g = self._algo_graph()
         sample_g = g.core
         if edge_dir == "in":
@@ -211,6 +213,29 @@ class GraphStore:
             "destinations": g.to_external(dsts),
             "hop": _host(res["hop"]),
         })
+
+    def _sample_neighbors_mg(self, nodes, fanout, with_replacement, num_hops, edge_dir,
+                             generator) -> pd.DataFrame:
+        """The mesh sampler over the MGPropertyGraph's edges, stored reversed
+        for edge_dir "in" (JAX graph_store.py:221, ref CuGraphStore's dask
+        path). The graph is extracted once a direction and kept; vertex ids
+        are the tables' integer ids. Every rank must make the same call."""
+        from ..dist import mg_sampling
+        from ..utils.error import expects
+
+        expects(fanout > 0, "MG sampling needs fanout > 0")
+        rev = edge_dir == "in"
+        mgg = self._mgg.get(edge_dir)
+        if mgg is None:
+            mgg = self._mgg[edge_dir] = self.pg.extract_subgraph(check_multi_edges=False,
+                                                                 reverse=rev)
+        res = mg_sampling.mg_uniform_neighbor_sample(
+            self.pg.mesh, mgg, np.atleast_1d(_host(nodes)), [fanout] * num_hops,
+            with_replacement=with_replacement, generator=generator)
+        srcs, dsts = _host(res["sources"]), _host(res["destinations"])
+        if rev:
+            srcs, dsts = dsts, srcs
+        return pd.DataFrame({"sources": srcs, "destinations": dsts, "hop": _host(res["hop"])})
 
     def get_node_storage(
         self, columns, node_type: str = "", backend_lib: str = "torch"

@@ -51,37 +51,42 @@ def edge_multiplicity(
     return torch.searchsorted(keys, probe, right=True) - torch.searchsorted(keys, probe)
 
 
-def ragged_chunks(
-    counts: torch.Tensor, budget: int
-) -> Iterator[Tuple[int, int, torch.Tensor, torch.Tensor]]:
-    """Items expanded by their counts, a chunk of consecutive items at a
-    time whose counts sum to about ``budget`` at most (one item above it
-    makes a chunk of its own). Yields (i0, i1, owner, rank) for items
-    [i0, i1): the item of each slot (int64) and the slot's index within
-    its item. One host read of the chunk bounds per call."""
+def chunk_bounds(counts: torch.Tensor, budget: int):
+    """Item ranges [i0, i1) of consecutive items whose counts sum to about
+    ``budget`` at most (one item above it makes a range of its own): a
+    list of (i0, i1, the range's sum), without the ranges that sum to 0.
+    One host read of the bounds."""
     counts = counts.to(torch.int64)
     n = counts.numel()
     if n == 0:
-        return
-    dev = counts.device
+        return []
     cum = torch.cumsum(counts, 0)
     total = int(cum[-1])
     if total == 0:
-        return
-    targets = torch.arange(1, -(-total // budget), device=dev) * budget
+        return []
+    targets = torch.arange(1, -(-total // budget), device=counts.device) * budget
     bounds = torch.searchsorted(cum, targets, right=True)
     bounds = torch.unique(torch.cat([bounds.new_zeros(1), bounds, bounds.new_full((1,), n)]))
     ends = cum[(bounds - 1).clamp(min=0)]
     ends[0] = 0
     bounds, ends = bounds.tolist(), ends.tolist()
-    for i in range(len(bounds) - 1):
-        i0, i1, s0 = bounds[i], bounds[i + 1], ends[i]
-        n_s = ends[i + 1] - s0
-        if n_s == 0:
-            continue
-        owner = torch.repeat_interleave(torch.arange(i0, i1, device=dev), counts[i0:i1],
-                                        output_size=n_s)
-        rank = torch.arange(n_s, device=dev) - (cum[owner] - counts[owner] - s0)
+    return [(bounds[i], bounds[i + 1], ends[i + 1] - ends[i]) for i in range(len(bounds) - 1)
+            if ends[i + 1] > ends[i]]
+
+
+def ragged_chunks(
+    counts: torch.Tensor, budget: int
+) -> Iterator[Tuple[int, int, torch.Tensor, torch.Tensor]]:
+    """Items expanded by their counts, a chunk of consecutive items at a
+    time whose counts sum to about ``budget`` at most (``chunk_bounds``).
+    Yields (i0, i1, owner, rank) for items [i0, i1): the item of each slot
+    (int64) and the slot's index within its item."""
+    counts = counts.to(torch.int64)
+    dev = counts.device
+    for i0, i1, n_s in chunk_bounds(counts, budget):
+        c = counts[i0:i1]
+        owner = torch.repeat_interleave(torch.arange(i0, i1, device=dev), c, output_size=n_s)
+        rank = torch.arange(n_s, device=dev) - (torch.cumsum(c, 0) - c)[owner - i0]
         yield i0, i1, owner, rank
 
 

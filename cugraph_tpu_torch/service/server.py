@@ -13,10 +13,9 @@ mesh over the process group that is up, or over a one-rank group that it
 starts on the handler's device (NCCL on a card, gloo on the CPU, on a
 free localhost port; ``CugraphTpuServer.stop`` ends it). Calls on such a
 graph go to ``mg_pagerank``, ``mg_bfs``, ``mg_sssp``, ``mg_wcc`` and
-``mg_katz_centrality``; every rank of the group must make the same calls.
-Its neighbor sampler needs ``dist.mg_sampling``, which the port does not
-have yet: it raises ``NotImplementedError`` rather than sample on one
-device.
+``mg_katz_centrality``, and its neighbor sampler to
+``mg_uniform_neighbor_sample``; every rank of the group must make the
+same calls.
 """
 
 from __future__ import annotations
@@ -177,11 +176,20 @@ class CugraphHandler:
         with_replacement: bool = False,
         graph_id: int = DEFAULT_GRAPH_ID,
     ) -> Dict[str, List]:
-        g = self._algo_graph(graph_id)
         if graph_id in self._dist:
-            raise NotImplementedError(
-                "uniform_neighbor_sample on a mesh-backed graph needs "
-                "cugraph_tpu_torch.dist.mg_sampling, which is not ported yet")
+            # mesh-backed: the distributed sampler (ref cugraph_handler.py:246
+            # is_multi_gpu sampling path), its ids mapped back to external
+            from ..dist.mg_sampling import mg_uniform_neighbor_sample
+
+            mesh, mgg, g = self._dist[graph_id]
+            res = mg_uniform_neighbor_sample(mesh, mgg, g.to_internal(np.asarray(start_list)),
+                                             fanout_vals, with_replacement=with_replacement)
+            return {
+                "sources": np.asarray(g.to_external(res["sources"])).tolist(),
+                "destinations": np.asarray(g.to_external(res["destinations"])).tolist(),
+                "indices": None if res["weights"] is None else _host(res["weights"]).tolist(),
+            }
+        g = self._algo_graph(graph_id)
         from ..api import algorithms as capi
 
         df = capi.uniform_neighbor_sample(

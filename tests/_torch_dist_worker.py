@@ -177,7 +177,17 @@ def run_mesh(rank: int, shape, cases: dict) -> dict:
 def run_launch_counts(rank: int) -> dict:
     """The MG entry points on a small graph: the kernels' launch counts
     before and after (CPU tensors take the plain versions)."""
-    from cugraph_tpu_torch.dist import distribute_edgelist, make_mesh, mg_algos, mg_community, mg_gnn
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import (
+        distribute_edgelist,
+        make_mesh,
+        mg_algos,
+        mg_centrality,
+        mg_community,
+        mg_gnn,
+        mg_sampling,
+        mg_similarity,
+    )
     from cugraph_tpu_torch.dist.mg_graph import shard_vertex_values
 
     mesh = make_mesh(device="cpu")
@@ -206,6 +216,15 @@ def run_launch_counts(rank: int) -> dict:
     mgs = distribute_edgelist(mesh, src, dst, num_vertices=40, symmetrize=True)
     mg_community.mg_louvain(mesh, mgs)
     mg_community.mg_leiden(mesh, mgs, cluster_state="hypersparse")
+    mgsw = distribute_edgelist(mesh, src, dst, rng.random(200), num_vertices=40, symmetrize=True)
+    mg_similarity.mg_jaccard(mesh, mgsw, ([0, 1], [2, 3]), use_weight=True)
+    mg_similarity.mg_triangle_count(mesh, mgs)
+    mg_sampling.mg_uniform_neighbor_sample(mesh, mgsw, [0, 1], [3, 2])
+    mg_sampling.mg_uniform_neighbor_sample(mesh, mgsw, [0, 1], [3, 2], method="shuffle")
+    mg_sampling.mg_random_walks(mesh, mgs, [0, 1], 3)
+    g = ct.from_edgelist(src, dst, num_vertices=40, device="cpu")
+    mg_centrality.mg_betweenness_centrality(mesh, g, k=4)
+    mg_centrality.mg_edge_betweenness_centrality(mesh, g, k=4)
     return {"before": before, "after": _launches(), "shape": mesh.shape}
 
 
@@ -430,8 +449,8 @@ def run_community(rank: int, shape, community: dict) -> dict:
 def run_service(rank: int, shape, csv_path: str) -> dict:
     """The service handler on every rank of the group, each rank making
     the same calls: the single-device results, then distribute_graph on
-    ``shape`` and the MG-routed results; a shape that does not cover the
-    world, and the MG sampler, must raise."""
+    ``shape`` and the MG-routed results (the sampler's too); a shape that
+    does not cover the world must raise."""
     import cugraph_tpu_torch as ct
     from cugraph_tpu_torch.service import CugraphHandler
 
@@ -445,6 +464,7 @@ def run_service(rank: int, shape, csv_path: str) -> dict:
         "katz": lambda: h.katz_centrality(alpha=0.05, tol=1e-8),
     }
     out = {"sg": {k: fn() for k, fn in calls.items()}}
+    out["sg_sample"] = h.uniform_neighbor_sample([0, 5, 33], [4, 2])
     world = dist.get_world_size()
     try:
         h.distribute_graph(mesh_shape=[world + 1, 1])
@@ -453,11 +473,7 @@ def run_service(rank: int, shape, csv_path: str) -> dict:
         out["bad_shape_raised"] = True
     out["info"] = h.distribute_graph(mesh_shape=list(shape))
     out["mg"] = {k: fn() for k, fn in calls.items()}
-    try:
-        h.uniform_neighbor_sample([0], [4])
-        out["sample"] = "returned"
-    except NotImplementedError as exc:
-        out["sample"] = str(exc)
+    out["sample"] = h.uniform_neighbor_sample([0, 5, 33], [4, 2])
     out["own_group"] = h._own_group
     return out
 
@@ -478,4 +494,172 @@ def run_service_own_group(rank: int, csv_path: str) -> dict:
     server.start()
     server.stop()
     out["up_after_stop"] = dist.is_initialized()
+    return out
+
+
+def _symmetric_graph(mesh, c):
+    from cugraph_tpu_torch.dist import distribute_edgelist
+
+    return distribute_edgelist(mesh, c["src"], c["dst"], c["w"], num_vertices=c["num_vertices"],
+                               symmetrize=True)
+
+
+def _sg_symmetric(c):
+    import cugraph_tpu_torch as ct
+
+    return ct.from_edgelist(c["src"], c["dst"], c["w"], num_vertices=c["num_vertices"],
+                            symmetrize=True, device="cpu")
+
+
+def run_similarity(rank: int, shape, cases: dict, tri_edges=None) -> dict:
+    """The DCSR arrays, ``dcsr_lookup``, the three coefficients (plain and
+    weighted) beside the port's single-device ones, the members, and the
+    triangle counts beside ``triangle_count`` on each of ``cases``'
+    symmetrized graphs; with ``tri_edges`` ((src, dst, V) of a symmetric
+    edge list), its triangle count and seconds."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import distribute_edgelist, make_mesh, mg_prims, mg_similarity
+    from cugraph_tpu_torch.dist.mg_graph import src_dcsr
+
+    mesh = make_mesh(tuple(shape), device="cpu")
+    out = {"coords": (mesh.i, mesh.j), "launches_before": _launches()}
+    for name, c in cases.items():
+        mgg = _symmetric_graph(mesh, c)
+        g = _sg_symmetric(c)
+        adj = src_dcsr(mesh, mgg)
+        r = {"dcsr": {k: None if a is None else _np(a) for k, a in adj._asdict().items()},
+             "d_pad": mgg.d_pad}
+        ids = torch.arange(mgg.rows * mgg.vp)
+        r["lookup"] = tuple(_np(a) for a in mg_prims.dcsr_lookup(
+            adj.src_nzd, adj.src_nzd_offsets, ids))
+        pairs = (torch.from_numpy(c["v1"]), torch.from_numpy(c["v2"]))
+        for kind in ("jaccard", "sorensen", "overlap"):
+            for w in (False, True):
+                r[f"{kind}_{w}"] = _np(mg_similarity.mg_similarity(mesh, mgg, pairs, kind, w))
+                r[f"sg_{kind}_{w}"] = _np(getattr(ct, kind)(g, pairs, use_weight=w)[2])
+        inter, members = mg_similarity._mg_intersection_members(mesh, mgg, *pairs)
+        r["members"] = (_np(inter), _np(members), mg_similarity._max_local_degree(mesh, mgg))
+        r["triangles"] = _np(mg_similarity.mg_triangle_count(mesh, mgg))
+        r["triangles_small_batch"] = _np(mg_similarity.mg_triangle_count(mesh, mgg, batch_size=7))
+        r["sg_triangles"] = _np(ct.triangle_count(g))
+        out[name] = r
+    if tri_edges is not None:
+        src, dst, v = tri_edges
+        mgg = distribute_edgelist(mesh, src, dst, num_vertices=v, is_symmetric=True)
+        t = time.perf_counter()
+        counts = mg_similarity.mg_triangle_count(mesh, mgg)
+        out["tri_edges"] = (int(counts.sum()) // 3, time.perf_counter() - t)
+    out["launches_after"] = _launches()
+    return out
+
+
+def run_sampling(rank: int, shape, cases: dict) -> dict:
+    """``mg_sampling`` on each of ``cases``' symmetrized graphs, fed the
+    uniforms in ``cases[name]["us"]`` and ``["walk_us"]``: every method x
+    replacement, a shuffle capacity of 1, and the walks; then the public
+    entry points drawing from a generator seeded 7."""
+    from cugraph_tpu_torch.dist import make_mesh, mg_sampling
+
+    mesh = make_mesh(tuple(shape), device="cpu")
+    out = {"coords": (mesh.i, mesh.j), "launches_before": _launches()}
+
+    def host(res):
+        return {k: None if v is None else _np(v) for k, v in res.items()}
+
+    for name, c in cases.items():
+        mgg = _symmetric_graph(mesh, c)
+        seeds = torch.from_numpy(c["seeds"])
+        r = {}
+        for repl in (False, True):
+            us = [torch.from_numpy(u) for u in c["us"][repl]]
+            for method in ("replicate", "shuffle"):
+                r[(method, repl)] = host(mg_sampling._sample_with_uniforms(
+                    mesh, mgg, seeds, us, with_replacement=repl, method=method))
+            r[("shuffle_cap1", repl)] = host(mg_sampling._sample_with_uniforms(
+                mesh, mgg, seeds, us, with_replacement=repl, method="shuffle",
+                shuffle_capacity=1))
+        r["walks"] = _np(mg_sampling._walk_with_uniforms(
+            mesh, mgg, seeds, [torch.from_numpy(u) for u in c["walk_us"]]))
+        for repl in (False, True):
+            r[("generator", repl)] = host(mg_sampling.mg_uniform_neighbor_sample(
+                mesh, mgg, seeds, c["fanouts"], with_replacement=repl,
+                generator=torch.Generator().manual_seed(7)))
+        r["generator_walks"] = _np(mg_sampling.mg_random_walks(
+            mesh, mgg, seeds, len(c["walk_us"]), generator=torch.Generator().manual_seed(7)))
+        out[name] = r
+    out["launches_after"] = _launches()
+    return out
+
+
+def run_centrality(rank: int, shape, cases: dict) -> dict:
+    """``mg_centrality`` on each of ``cases``' single-device graphs, every
+    rank holding it: exact betweenness under every normalized x endpoints,
+    exact edge betweenness, and both sampled (k = 8, seed 3) beside the
+    port's single-device results."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.dist import make_mesh, mg_centrality
+
+    mesh = make_mesh(tuple(shape), device="cpu")
+    out = {"coords": (mesh.i, mesh.j)}
+    for name, c in cases.items():
+        g = ct.from_edgelist(c["src"], c["dst"], num_vertices=c["num_vertices"],
+                             symmetrize=c["symmetrize"], device="cpu")
+        r = {}
+        before = _launches()
+        for norm in (False, True):
+            for ends in (False, True):
+                r[("bc", norm, ends)] = _np(mg_centrality.mg_betweenness_centrality(
+                    mesh, g, normalized=norm, endpoints=ends))
+        r["ebc"] = _np(mg_centrality.mg_edge_betweenness_centrality(mesh, g))
+        r["bc_k8"] = _np(mg_centrality.mg_betweenness_centrality(mesh, g, k=8, seed=3))
+        r["ebc_k8"] = _np(mg_centrality.mg_edge_betweenness_centrality(mesh, g, k=8, seed=3))
+        r["launches"] = [a - b for a, b in zip(_launches(), before)]
+        r["sg_bc_k8"] = _np(ct.betweenness_centrality(g, k=8, seed=3))
+        r["sg_ebc_k8"] = _np(ct.edge_betweenness_centrality(g, k=8, seed=3))
+        out[name] = r
+    return out
+
+
+def run_mg_store(rank: int, shape, frame, seeds, us: dict) -> dict:
+    """A GraphStore over an MGPropertyGraph of ``frame``'s (src, dst)
+    edges: ``sample_neighbors`` (fanout 3, 2 hops) in both edge
+    directions, once from a generator seeded 3 and once with the mesh
+    sampler fed ``us[edge_dir]`` (``mg_sampling._sample_with_uniforms`` in
+    place of ``mg_uniform_neighbor_sample``); then fanout -1."""
+    from cugraph_tpu_torch.dist import make_mesh, mg_sampling
+    from cugraph_tpu_torch.dist.mg_property_graph import MGPropertyGraph
+    from cugraph_tpu_torch.gnn import GraphStore
+
+    mesh = make_mesh(tuple(shape), device="cpu")
+    pg = MGPropertyGraph(mesh, chunk_edges=50)
+    store = GraphStore(pg, device="cpu")
+    store.add_edge_data(frame, ("src", "dst"))
+    out = {"is_mg": store.is_mg}
+
+    def frame_of(df):
+        return {k: df[k].to_numpy() for k in df.columns}
+
+    drawn = mg_sampling.mg_uniform_neighbor_sample
+    for edge_dir in ("in", "out"):
+        out[edge_dir] = frame_of(store.sample_neighbors(
+            seeds, fanout=3, num_hops=2, edge_dir=edge_dir,
+            generator=torch.Generator().manual_seed(3)))
+
+        def fed(mesh_, mgg, starts, fanouts, *, with_replacement, generator, **_):
+            return mg_sampling._sample_with_uniforms(
+                mesh_, mgg, torch.as_tensor(starts), [torch.from_numpy(u) for u in us[edge_dir]],
+                with_replacement=with_replacement, method="replicate")
+
+        mg_sampling.mg_uniform_neighbor_sample = fed
+        try:
+            out[edge_dir + "_uniforms"] = frame_of(store.sample_neighbors(
+                seeds, fanout=3, num_hops=2, edge_dir=edge_dir))
+        finally:
+            mg_sampling.mg_uniform_neighbor_sample = drawn
+        out[edge_dir + "_edge_data"] = len(store._mgg[edge_dir].edge_data)
+    try:
+        store.sample_neighbors(seeds, fanout=-1)
+        out["fanout_-1"] = "returned"
+    except Exception as exc:  # the JAX rule: MG sampling needs fanout > 0
+        out["fanout_-1"] = f"{type(exc).__name__}: {exc}"
     return out

@@ -3,8 +3,13 @@
 The asserts of the JAX package's store tests (tests/test_gnn.py) run on
 the port (``device="cpu"``), and both packages' stores are filled from
 one karate frame and held against each other: features and edge lookups
-exactly, take-all samples (fanout -1) as sets of edges.
+exactly, take-all samples (fanout -1) as sets of edges. An MG-backed
+store (``dist.MGPropertyGraph`` on a 2 x 1 gloo mesh, in the ranks of
+``_torch_dist_worker.run_mg_store``) is fed the JAX store's uniforms and
+gives its frame exactly.
 """
+
+import functools
 
 import numpy as np
 import pandas as pd
@@ -130,8 +135,11 @@ def test_feature_storage_backends():
 
 
 def test_mg_store_branch_raises():
-    """An MG-backed store's sampler has no counterpart yet: it raises, and
-    does not sample on one device instead."""
+    """An MG-backed store samples on its mesh and never on one device: a
+    fanout of -1, which the mesh sampler does not take, raises GraphError
+    (the JAX package's rule) before any graph is built."""
+    from cugraph_tpu_torch.utils.error import GraphError
+
     store, _ = _stores()
 
     class _MG:
@@ -139,8 +147,91 @@ def test_mg_store_branch_raises():
             return True
 
     store.pg = _MG()
-    with pytest.raises(NotImplementedError, match="mg_sampling"):
-        store.sample_neighbors([0], fanout=2)
+    with pytest.raises(GraphError, match="fanout > 0"):
+        store.sample_neighbors([0], fanout=-1)
+
+
+# ------------------------------------------------------- MG-backed stores
+
+MG_SHAPE = (2, 1)
+MG_KEY = 13
+
+
+@functools.lru_cache(maxsize=None)
+def _mg_frame():
+    rng = np.random.default_rng(3)
+    return pd.DataFrame({"src": rng.integers(0, 40, 300), "dst": rng.integers(0, 40, 300)})
+
+
+def _jax_mg_uniforms(n_seeds, fanouts, n_dev, key):
+    """The uniforms JAX's mg_uniform_neighbor_sample draws from ``key``."""
+    import jax
+
+    rng_key = jax.random.PRNGKey(key)
+    sizes = [max(-(-n_seeds // n_dev) * n_dev, n_dev)]
+    for k in fanouts:
+        sizes.append(sizes[-1] * k)
+    us = []
+    for h, k in enumerate(fanouts):
+        rng_key, sub = jax.random.split(rng_key)
+        us.append(np.asarray(jax.random.uniform(sub, (sizes[h], k))))
+    return us
+
+
+MG_SEEDS = [0, 1, 7, 39]
+
+
+@functools.lru_cache(maxsize=None)
+def _mg_store_runs():
+    import _torch_dist_worker as worker
+
+    us = _jax_mg_uniforms(len(MG_SEEDS), [3, 3], MG_SHAPE[0] * MG_SHAPE[1], MG_KEY)
+    return worker.spawn(worker.run_mg_store, MG_SHAPE[0] * MG_SHAPE[1], MG_SHAPE, _mg_frame(),
+                        MG_SEEDS, {"in": us, "out": us})
+
+
+@pytest.mark.parametrize("edge_dir", ["in", "out"])
+def test_mg_store_sample_neighbors_matches_jax(edge_dir):
+    """An MG-backed store (2 x 1 gloo mesh) fed the JAX uniforms gives the
+    JAX store's frame on a mesh of the same shape, in each direction."""
+    import jax
+
+    from cugraph_tpu.dist.mesh import make_mesh as jax_make_mesh
+    from cugraph_tpu.dist.mg_property_graph import MGPropertyGraph as JaxMGPropertyGraph
+
+    pg = JaxMGPropertyGraph(jax_make_mesh(MG_SHAPE))
+    pg.add_edge_data(_mg_frame(), ("src", "dst"))
+    want = jgnn.GraphStore(property_graph=pg).sample_neighbors(
+        MG_SEEDS, fanout=3, num_hops=2, edge_dir=edge_dir, rng_key=jax.random.PRNGKey(MG_KEY))
+    assert len(want) > 0
+    for r in _mg_store_runs():
+        assert r["is_mg"]
+        got = r[edge_dir + "_uniforms"]
+        for k in ("sources", "destinations", "hop"):
+            np.testing.assert_array_equal(got[k], want[k].to_numpy(), err_msg=k)
+        assert r[edge_dir + "_edge_data"] == len(_mg_frame())
+
+
+@pytest.mark.parametrize("edge_dir", ["in", "out"])
+def test_mg_store_generator_sample_is_edges(edge_dir):
+    """From a generator: every sampled (source, destination) an edge of
+    the frame, hop 0 leaving (out) or entering (in) the seeds, at most
+    fanout a seed; the same frame on every rank."""
+    edges = set(zip(_mg_frame()["src"].tolist(), _mg_frame()["dst"].tolist()))
+    runs = _mg_store_runs()
+    got = runs[0][edge_dir]
+    for other in runs[1:]:
+        for k in got:
+            np.testing.assert_array_equal(other[edge_dir][k], got[k])
+    assert len(got["sources"]) > 0
+    for s, d in zip(got["sources"], got["destinations"]):
+        assert (int(s), int(d)) in edges
+    hop0 = got["hop"] == 0
+    ends = got["sources" if edge_dir == "out" else "destinations"][hop0]
+    assert set(ends.tolist()) <= set(MG_SEEDS)
+    for s in MG_SEEDS:
+        assert (ends == s).sum() <= 3
+    assert "fanout > 0" in runs[0]["fanout_-1"]
 
 
 # -------------------------------------------------- parity with the JAX stores

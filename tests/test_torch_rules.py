@@ -69,7 +69,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "experimental/compat_nx.py", "gnn/loader.py", "gnn/graph_store.py",
                 "gnn/pyg_store.py", "dist/mg_gnn.py", "dist/mg_community.py",
                 "service/server.py", "service/client.py", "examples/train_graphsage.py",
-                "examples/community_detection.py"):
+                "examples/community_detection.py", "dist/mg_sampling.py",
+                "dist/mg_similarity.py", "dist/mg_centrality.py",
+                "dist/mg_property_graph.py"):
         assert ROOT / "cugraph_tpu_torch" / mod in files
     bad = [
         (str(f.relative_to(ROOT)), mod)
@@ -144,6 +146,18 @@ ENTRY_POINTS = {
     "mg_modularity": lambda: ctd.mg_community.mg_modularity(_CARD_MESH, _mg_graph(), [0] * 4),
     "mg_louvain": lambda: ctd.mg_community.mg_louvain(_CARD_MESH, _mg_graph()),
     "mg_leiden": lambda: ctd.mg_community.mg_leiden(_CARD_MESH, _mg_graph()),
+    "mg_uniform_neighbor_sample": lambda: ctd.mg_sampling.mg_uniform_neighbor_sample(
+        _CARD_MESH, _mg_graph(), [0], [2]),
+    "mg_random_walks": lambda: ctd.mg_sampling.mg_random_walks(_CARD_MESH, _mg_graph(), [0], 2),
+    "mg_jaccard": lambda: ctd.mg_similarity.mg_jaccard(_CARD_MESH, _mg_graph(), ([0], [1])),
+    "mg_sorensen": lambda: ctd.mg_similarity.mg_sorensen(_CARD_MESH, _mg_graph(), ([0], [1])),
+    "mg_overlap": lambda: ctd.mg_similarity.mg_overlap(_CARD_MESH, _mg_graph(), ([0], [1])),
+    "mg_triangle_count": lambda: ctd.mg_similarity.mg_triangle_count(_CARD_MESH, _mg_graph()),
+    "mg_betweenness_centrality": lambda: ctd.mg_centrality.mg_betweenness_centrality(
+        _CARD_MESH, _CARD_GRAPH),
+    "mg_edge_betweenness_centrality": lambda: ctd.mg_centrality.mg_edge_betweenness_centrality(
+        _CARD_MESH, _CARD_GRAPH),
+    "MGPropertyGraph.extract_subgraph": lambda: _mg_property_graph().extract_subgraph(),
     "CugraphHandler": lambda: service.CugraphHandler(),
     "CugraphTpuServer": lambda: service.CugraphTpuServer(port=0),
     "examples.train_graphsage": lambda: train_graphsage.main(["--scale", "4", "--steps", "1"]),
@@ -167,6 +181,16 @@ def _mg_graph():
 def _property_graph():
     pg = api.PropertyGraph()
     pg.add_edge_data(_edge_frame(), ("source", "destination"))
+    return pg
+
+
+def _mg_property_graph():
+    import pandas as pd
+
+    from cugraph_tpu_torch.dist.mg_property_graph import MGPropertyGraph
+
+    pg = MGPropertyGraph(_CARD_MESH)
+    pg.add_edge_data(pd.DataFrame({"s": [0, 1], "d": [1, 2]}), ("s", "d"))
     return pg
 
 
@@ -309,3 +333,24 @@ def test_every_jax_export_exists_in_the_port(package, port):
         assert "__version__" in names and ct.__version__
     missing = sorted(n for n in names if not hasattr(port, n))
     assert missing == []
+
+
+def _public_names(path):
+    """The public functions and classes a module defines at its top level."""
+    return {node.name for node in ast.parse(path.read_text(), filename=str(path)).body
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_")}
+
+
+@pytest.mark.parametrize("module", ["mg_sampling", "mg_similarity", "mg_centrality",
+                                    "mg_property_graph"])
+def test_every_public_name_of_the_mg_modules_exists(module):
+    """Each public function and class of the JAX ``dist/`` module, in the
+    port's module of the same name; and ``mg_prims.dcsr_lookup``."""
+    import importlib
+
+    names = _public_names(ROOT / "cugraph_tpu" / "dist" / f"{module}.py")
+    assert names
+    port = importlib.import_module(f"cugraph_tpu_torch.dist.{module}")
+    assert sorted(n for n in names if not hasattr(port, n)) == []
+    assert callable(ctd.mg_prims.dcsr_lookup)
+    assert hasattr(ctd, module) or module == "mg_property_graph"  # as dist/__init__ imports them

@@ -176,17 +176,32 @@ def test_handler_mg_backed_graph(edge_csv, shape):
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2)], ids=lambda s: f"{s[0]}x{s[1]}")
 def test_handler_mg_routing(edge_csv, shape):
     """SSSP, WCC and Katz route to mg_sssp, mg_wcc and
-    mg_katz_centrality and match the single-device handler; the MG
-    sampler raises NotImplementedError naming mg_sampling (never a
-    single-device sample)."""
-    for r in _mg_runs(edge_csv, shape):
+    mg_katz_centrality and match the single-device handler; the sampler
+    routes to mg_uniform_neighbor_sample: the same on every rank, each
+    edge an edge of the CSV, and the single-device contract (the same
+    keys, hop 0 first with min(fanout, out-degree) edges a start)."""
+    df = pd.read_csv(edge_csv)
+    edges = set(zip(df["src"], df["dst"]))
+    out_deg = df["src"].value_counts().to_dict()
+    starts, fanout = [0, 5, 33], 4
+    hop0 = sum(min(fanout, out_deg.get(s, 0)) for s in starts)
+    runs = _mg_runs(edge_csv, shape)
+    for r in runs:
         sg, mg = r["sg"], r["mg"]
         assert mg["sssp"]["vertex"] == sg["sssp"]["vertex"]
         np.testing.assert_array_equal(mg["sssp"]["distance"], sg["sssp"]["distance"])
         assert mg["wcc"] == sg["wcc"]
         np.testing.assert_allclose(mg["katz"]["katz_centrality"], sg["katz"]["katz_centrality"],
                                    atol=SCORE_ATOL)
-        assert "mg_sampling" in r["sample"]
+        assert r["sample"] == runs[0]["sample"]
+        for sample in (r["sample"], r["sg_sample"]):
+            assert set(sample) == {"sources", "destinations", "indices"}
+            assert len(sample["sources"]) == len(sample["destinations"]) > hop0
+            for s, d in zip(sample["sources"], sample["destinations"]):
+                assert (s, d) in edges
+            first = sample["sources"][:hop0]
+            assert sorted(first) == sorted(s for s in starts
+                                           for _ in range(min(fanout, out_deg.get(s, 0))))
 
 
 def test_handler_starts_and_ends_its_own_group(edge_csv):
