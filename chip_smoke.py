@@ -11,11 +11,17 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    adversarial graph for the merge-path tiles (a 2^18-edge hub row, rows
    ending exactly on tile boundaries, empty first, middle and last rows;
    spmv_sum and spmv_minplus, weighted, unweighted and BFS-shaped, at both
-   tile sizes) and at the main path's shapes: spmv_sum, spmv_minplus,
-   spmm_rows (both modes, and an F other than 128), each kernel launched
-   twice and bit-equal. Median times of single calls and of back-to-back
-   calls; bounds, library yardsticks, each tile plan's one-time cost, and
-   an SpMV wrapper's host time split into its parts.
+   tile sizes; spmm_rows in its wide layout at F = 128, 101 (one float a
+   load) and 200 (a partial second column pass), in its narrow layout's
+   F, with x 4 bytes off alignment, and on graphs whose rows close a step
+   of the narrow layout's lane groups) and
+   at the main path's shapes: spmv_sum, spmv_minplus, spmm_rows (both
+   modes, F = 128, 129 (the wide layout's scalar loads) and 40, and the
+   narrow layout at F = 8, 16, 32, 10 in f32 and 8 in bf16), each kernel
+   launched twice and bit-equal. Median
+   times of single calls and of back-to-back calls; bounds, library
+   yardsticks, each tile plan's one-time cost, and an SpMV wrapper's host
+   time split into its parts.
 3b. Fault path: every entry point that takes vertex ids from its caller
    (pagerank's personalization, the four similarity pairs, the sampler's,
    the walks' and node2vec's starts, extract_bfs_paths' destinations,
@@ -189,6 +195,18 @@ PEAK_F32_FLOP_PER_S = 67e12
 DEV = torch.device("cuda")
 # tolerances (see check_* below)
 TOL_SUM_REL = 1e-5  # spmv_sum, spmm_rows f32 / bf16 vs float64 plain version
+# spmm_rows' wide layout on the small graphs: 128 (one float4 pass), 101
+# (one float a load: F % 4 != 0) and 200 (a partial second 128-column pass)
+WIDE_CHECK_FS = (128, 101, 200)
+# its narrow layout: 1 and 2 (32 edges a step), 3, 33 and 37 (one float a
+# load; 33 and 37 take a second column pass of 1 and 5), 8 (16 edges a
+# step, Brandes at k = 8), 10 (two floats a load), 16, 32 and 64
+NARROW_CHECK_FS = (1, 2, 3, 8, 10, 16, 32, 33, 37, 64)
+# x at a 4-byte offset takes one float a load in either layout
+UNALIGNED_CHECK_FS = (128, 8)
+# spmm_rows at full shape in the narrow layout: (F, mode), Brandes' f32
+# blocks of 8, 16 and 32 sources, an F with no 4-float loads, bf16
+NARROW_FULL_SHAPES = ((8, "f32"), (16, "f32"), (32, "f32"), (10, "f32"), (8, "bf16"))
 # spmm_aggregate's bf16 dX against autograd through the plain version: the
 # kernel rounds each term of dY to bf16, autograd rounds the summed row;
 # each is within 2^-8 (bf16's unit roundoff) of the row's sum of |dY| from
@@ -539,9 +557,25 @@ def adversarial_graph(seed: int, weighted: bool, tile_sizes):
     return g
 
 
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def small_graph_checks(seed: int) -> None:
     from cugraph_tpu_torch.prims.cuda import spmm_row, spmm_rows, spmv, spmv_minplus, spmv_sum
 
+    layout = spmm_row.spmm_layout
+    require(not any(layout(f).narrow for f in WIDE_CHECK_FS)
+            and all(layout(f).narrow for f in NARROW_CHECK_FS)
+            and layout(101).vec == 1 and layout(200).vec == 4
+            and all(layout(f, 4).vec == 1 for f in UNALIGNED_CHECK_FS),
+            "the spmm_rows check widths must reach the layouts they are listed for")
+    spmm_fs = WIDE_CHECK_FS + NARROW_CHECK_FS
     counters = (spmv_sum, spmv_minplus, spmm_rows)
     before = [k.launches for k in counters]
     gen = torch.Generator().manual_seed(seed)
@@ -554,24 +588,33 @@ def small_graph_checks(seed: int) -> None:
         frontier = torch.rand(g.num_vertices, generator=gen).to(DEV) < 0.05
         ids = torch.arange(g.num_vertices, dtype=torch.float32, device=DEV)
         check_spmv_minplus(adj, torch.where(frontier, ids, float("inf")), use_weights=False)
-        for f in (128, 37):  # 37: the scalar path for F % 4 != 0
+        for f in spmm_fs:
             xf = torch.randn(g.num_vertices, f, generator=gen).to(DEV)
             check_spmm_rows(adj, xf, "f32")
             check_spmm_rows(adj, xf, "bf16")
+        for f in UNALIGNED_CHECK_FS:
+            xf = unaligned(torch.randn(g.num_vertices, f, generator=gen).to(DEV))
+            check_spmm_rows(adj, xf, "f32")
+            check_spmm_rows(adj, xf, "bf16")
+    n_spmm = 2 * 2 * 2 * len(spmm_fs)
     require(
-        [k.launches - b for k, b in zip(counters, before)] == [4, 8, 16],
+        [k.launches - b for k, b in zip(counters, before)]
+        == [4, 8, n_spmm + 2 * 2 * 2 * len(UNALIGNED_CHECK_FS)],
         "every small-graph check must launch its kernel",
     )
-    log("small skewed graphs: spmv_sum, spmv_minplus, spmm_rows (f32, bf16; F=128, 37) ok")
+    log(f"small skewed graphs: spmv_sum, spmv_minplus, spmm_rows (f32, bf16; "
+        f"wide F={list(WIDE_CHECK_FS)}, narrow F={list(NARROW_CHECK_FS)}, "
+        f"x 4 bytes off alignment F={list(UNALIGNED_CHECK_FS)}) ok")
 
     # the adversarial graph, at the default tiles and at small ones (the hub
-    # then spans thousands of tiles)
-    spmm_tiles = (spmm_row.ITEMS_PER_TILE, 32)
+    # then spans thousands of tiles); spmm_rows' wide and narrow tiles
+    spmm_tiles = ((spmm_row.ITEMS_PER_TILE, spmm_row.NARROW_ITEMS_PER_TILE), (32, 64))
     spmv_ipts = (spmv.SUM_ITEMS_PER_THREAD, 1)
     spmv_tiles = tuple(spmv.SUM_THREADS * i for i in spmv_ipts)
     before = [k.launches for k in counters]
     for weighted in (True, False):
-        g = adversarial_graph(seed + 10 + weighted, weighted, spmm_tiles + spmv_tiles)
+        g = adversarial_graph(seed + 10 + weighted, weighted,
+                              sum(spmm_tiles, ()) + spmv_tiles)
         adj = g.csc()
         x = torch.randn(g.num_vertices, generator=gen).to(DEV)
         frontier = torch.rand(g.num_vertices, generator=gen).to(DEV) < 0.05
@@ -583,21 +626,86 @@ def small_graph_checks(seed: int) -> None:
                 check_spmv_minplus(adj, x)
                 check_spmv_minplus(adj, x, use_weights=False)
                 check_spmv_minplus(adj, xb, use_weights=False)
-        for f in (128, 37):
+        for f in spmm_fs:
             xf = torch.randn(g.num_vertices, f, generator=gen).to(DEV)
             for precision in ("f32", "bf16"):
-                for k in spmm_tiles:
-                    with tile_constant(spmm_row, "ITEMS_PER_TILE", k):
+                for wide, narrow in spmm_tiles:
+                    with tile_constant(spmm_row, "ITEMS_PER_TILE", wide), \
+                            tile_constant(spmm_row, "NARROW_ITEMS_PER_TILE", narrow):
                         check_spmm_rows(adj, xf, precision)
     require(
-        [k.launches - b for k, b in zip(counters, before)] == [8, 24, 32],
+        [k.launches - b for k, b in zip(counters, before)] == [8, 24, n_spmm * 2],
         "every adversarial-graph check must launch its kernel",
     )
     log(f"adversarial graphs (V={g.num_vertices}, E={g.num_edges}, hub in-degree "
         f"{int(g.in_degrees().max())}): spmv_sum, spmv_minplus (weighted, unweighted, BFS "
         f"x; tiles of {list(spmv_tiles)}), "
-        f"spmm_rows (tiles of {list(spmm_tiles)}; f32, bf16; F=128, 37) ok, "
-        f"each bit-equal on a second launch")
+        f"spmm_rows (wide, narrow tiles of {list(spmm_tiles)}; f32, bf16; "
+        f"wide F={list(WIDE_CHECK_FS)}, narrow F={list(NARROW_CHECK_FS)}) ok, each bit-equal "
+        f"on a second launch")
+
+    # the narrow layout's steps: rows whose last edge closes a step of its
+    # G groups, at the default tile and a small one
+    before = spmm_rows.launches
+    steps = []
+    for f in NARROW_CHECK_FS:
+        groups = spmm_row.spmm_layout(f).groups
+        for k in (spmm_row.NARROW_ITEMS_PER_TILE, 64):
+            g, closing = step_boundary_graph(seed + f + k, groups, k)
+            xf = torch.randn(g.num_vertices, f, generator=gen).to(DEV)
+            with tile_constant(spmm_row, "NARROW_ITEMS_PER_TILE", k):
+                for precision in ("f32", "bf16"):
+                    check_spmm_rows(g.csc(), xf, precision)
+            steps.append([f, groups, k, closing])
+    require(spmm_rows.launches - before == 8 * len(NARROW_CHECK_FS),
+            "every step-boundary check must launch spmm_rows")
+    log(f"step-boundary graphs ([F, G, tile, rows closing a step]: {steps}): spmm_rows "
+        f"(f32, bf16) ok, each bit-equal on a second launch")
+
+
+def step_boundary_graph(seed: int, groups: int, k: int, rows: int = 6000):
+    """A CSC whose rows are built one by one so that every fourth row's
+    last edge closes a step of ``groups`` edges of the k-item tile that
+    holds it (steps counted from the tile's first edge), between empty
+    rows, short rows and rows of groups - 1 .. 2 groups + 1 edges; row 1 a
+    hub of 2^14 edges. Returns (graph, rows closing a step on the plan),
+    at least 8 of them."""
+    import bisect
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.prims.cuda._partition import merge_path_tiles
+
+    gen = torch.Generator().manual_seed(seed)
+    deg, markers, edges = [0, 1 << 14], [0, (1 << 14) + 1], 1 << 14
+    for i in range(rows):
+        pos = edges + len(deg)  # the row's first item
+        if i % 4 == 0:
+            tile = pos // k
+            e0 = tile * k - bisect.bisect_left(markers, tile * k)
+            d = (e0 - edges) % groups or groups
+            if pos + d > (tile + 1) * k:  # the row would leave its tile
+                d = 1
+        elif i % 4 == 3:
+            d = int(torch.randint(groups - 1, 2 * groups + 2, (1,), generator=gen))
+        else:
+            d = int(torch.randint(0, 3, (1,), generator=gen)) if i % 4 == 1 else 0
+        deg.append(d)
+        edges += d
+        markers.append(edges + len(deg) - 1)
+    deg += [0, 0]
+    v = len(deg)
+    degt = torch.tensor(deg)
+    dst = torch.repeat_interleave(torch.arange(v), degt)
+    src = (torch.rand(dst.numel(), generator=gen) ** 3 * v).long()
+    g = ct.from_edgelist(src, dst, torch.randn(dst.numel(), generator=gen), num_vertices=v,
+                         device=DEV)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long), degt.cumsum(0)])
+    _, tile_edge = merge_path_tiles(offsets.to(torch.int32), edges, k)
+    ends = offsets[1:][degt > 0]
+    tile = torch.searchsorted(tile_edge.long(), ends - 1, right=True) - 1
+    closing = int(((ends - tile_edge.long()[tile]) % groups == 0).sum())
+    require(closing >= 8, f"rows closing a step of {groups} on {k}-item tiles: {closing}")
+    return g, closing
 
 
 def wrapper_host_split(adj, x, reps: int = 2000) -> dict:
@@ -764,13 +872,19 @@ def full_shape_kernels(g, seed: int) -> dict:
     )
     del xb
 
-    # spmm_rows at F = 128 in the main path's bf16 mode, f32 beside it, and
-    # F = 40 in f32
+    # spmm_rows at F = 128 in the main path's bf16 mode, f32 beside it; F =
+    # 129 (the wide layout's scalar loads, both modes) and F = 40 (narrow)
+    # in f32
     f = 128
     xs = torch.randn(v, f, generator=gen, device=DEV)
     err_bf16 = check_spmm_rows(adj, xs, "bf16")
     err_f32 = check_spmm_rows(adj, xs, "f32")
     err_f40 = check_spmm_rows(adj, torch.randn(v, 40, generator=gen, device=DEV), "f32")
+    x129 = torch.randn(v, f + 1, generator=gen, device=DEV)
+    require(spmm_row.spmm_layout(f + 1)[:4] == (False, 32, 1, 1), "F = 129 takes the wide layout")
+    err_f129 = check_spmm_rows(adj, x129, "f32")
+    err_f129_bf16 = check_spmm_rows(adj, x129, "bf16")
+    del x129
     b_ms, b_by = bound(graph_bytes + 4 * f * n_src + 4 * f * v, 2 * e * f)
     out["spmm_rows"] = dict(
         max_abs_err=err_bf16, tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
@@ -782,8 +896,37 @@ def full_shape_kernels(g, seed: int) -> dict:
         plan_ms=plan_ms(adj, spmm_row.ITEMS_PER_TILE), mode="bf16",
         f32_ms=median_ms(lambda: spmm_rows(adj, xs, precision="f32"), 10),
         f32_max_abs_err=err_f32, f40_f32_max_abs_err=err_f40,
+        f129_f32_max_abs_err=err_f129, f129_bf16_max_abs_err=err_f129_bf16,
     )
+    del xs
+    out["spmm_rows"]["narrow"] = narrow_full_shape(adj, graph_bytes, n_src, lib_a, gen)
     log(f"full-shape kernels (V={v}, E={e}, sources with out-edges={n_src}): checks ok")
+    return out
+
+
+def narrow_full_shape(adj, graph_bytes: int, n_src: int, lib_a, gen) -> dict:
+    """spmm_rows in the narrow layout at NARROW_FULL_SHAPES on the main
+    graph's CSC: checked against float64 (a second launch bit-equal),
+    timed single and back to back, bound, CSR @ X beside it."""
+    from cugraph_tpu_torch.prims.cuda import spmm_row, spmm_rows, spmm_rows_reference
+
+    v, e = adj.num_majors, adj.num_edges
+    out = {}
+    for f, mode in NARROW_FULL_SHAPES:
+        x = torch.randn(v, f, generator=gen, device=DEV)
+        err = check_spmm_rows(adj, x, mode)
+        b_ms, b_by = bound(graph_bytes + 4 * f * n_src + 4 * f * v, 2 * e * f)
+        call = lambda: spmm_rows(adj, x, precision=mode)  # noqa: E731
+        library = lambda: lib_a @ x  # noqa: E731
+        out[f"f{f}_{mode}"] = dict(
+            f=f, mode=mode, layout=spmm_row.spmm_layout(f)._asdict(), max_abs_err=err,
+            tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
+            ms=median_ms(call, 20),
+            plain_ms=median_ms(lambda: spmm_rows_reference(adj, x, precision=mode), 3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(library, 20),
+            **back_to_back(call, library, 20),
+        )
+        log(f"spmm_rows narrow F={f} {mode}: {json.dumps(out[f'f{f}_{mode}'])}")
     return out
 
 

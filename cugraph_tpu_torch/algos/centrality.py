@@ -12,7 +12,7 @@ column of (V, S) state each: the path counts of a BFS level are one
 back-propagated dependencies of a level one over the CSR, where the JAX
 package runs masked edge-centric segment sums (XLA, no Pallas kernel) for
 every source at once (``vmap``). A block holds at most
-``BRANDES_BLOCK`` sources (one warp pass of the kernel's columns) and
+``BRANDES_BLOCK`` sources (one warp pass of the kernel's wide layout) and
 ``BRANDES_BATCH_SLOTS`` entries of (V, S) state; edge betweenness reads
 its per-edge values in one edge-centric pass a block, after the sweeps.
 """
@@ -29,8 +29,10 @@ from ..utils.device import as_tensor
 from ..utils.dtypes import INT32_MAX, VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects
 
-# sources a Brandes block at most: the columns of one spmm_rows launch,
-# 128 being one warp pass of csrc/spmm_row.cu
+# sources a Brandes block at most: the columns of one spmm_rows launch.
+# 128 fills a warp of the kernel's wide layout (csrc/spmm_row.cu); a block
+# of at most spmm_row.NARROW_MAX_F sources (sampled betweenness, a last
+# block) takes its narrow layout, a few lanes to each edge's row
 BRANDES_BLOCK = 128
 # entries of a block's (V, S) state, and of the (edges, S) temporaries of
 # its per-edge pass: 2^27 (512 MB in f32)

@@ -43,6 +43,10 @@ SIGNATURES = {
         # tile_edge, carry, y, tiles, items_per_tile, f, bf16, vec4, stream
         "cgt_spmm_rows": [_VP, _VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _INT, _I64,
                           _INT, _INT, _INT, _VP],
+        # offsets, majors, minors, weights, x, tile_row, tile_edge, carry, y,
+        # tiles, items_per_tile, f, lanes, vec, bf16, stream
+        "cgt_spmm_rows_narrow": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _I64, _INT,
+                                 _INT, _INT, _INT, _VP],
     },
     "scan": {
         # x, y, status words, n, stream

@@ -13,7 +13,9 @@ row goes straight to the output, which to carry slot 0 or 1, which tile
 boundary combines a cut row's carries in tile order), for the sum and for
 the min with its +inf identity, reproduces the float64 row sums and row
 minima and writes every row exactly once; a row with no edges comes out
-as the identity.
+as the identity. A numpy model of spmm_rows' narrow layout (its lane
+groups, steps, open row and segmented scan, in the kernel's order, fed to
+the same fix-up) writes every row once and matches the plain version.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ import pytest
 import torch
 
 from cugraph_tpu_torch.core.csr import CompressedAdj
-from cugraph_tpu_torch.prims.cuda import _partition
+from cugraph_tpu_torch.prims.cuda import _partition, spmm_row
 
 
 def _offsets(degrees):
@@ -156,7 +158,14 @@ def _kernel_model(offsets, vals, k, op="sum"):
             r, acc, has = r + 1, ident, False
         if has:
             carry[t, 0 if (r == r0 and head) else 1] = acc
-    for t in range(1, n_tiles):  # the fix-up: one owner per cut row
+    _fixup_model(off, rows, edges, carry, y, writes, k, combine)
+    return y, writes
+
+
+def _fixup_model(off, rows, edges, carry, y, writes, k, combine):
+    """The fix-up kernel: one owner per cut row, which combines slot 1 of
+    the tile the row began in with slot 0 of each later tile, in order."""
+    for t in range(1, len(rows) - 1):
         r = rows[t]
         if off[r] >= edges[t] or off[r] + r < rows[t - 1] + edges[t - 1]:
             continue
@@ -166,7 +175,6 @@ def _kernel_model(offsets, vals, k, op="sum"):
             acc = combine(acc, carry[tt, 0])
         y[r] = acc
         writes[r] += 1
-    return y, writes
 
 
 def _row_reduce(offsets, vals, op):
@@ -221,3 +229,209 @@ def test_rows_ending_on_tile_boundaries():
         y, writes = _kernel_model(offsets, -vals, k, "min")
         assert (writes == 1).all()
         np.testing.assert_array_equal(y, -vals.reshape(50, 3)[:, 2])
+
+
+# ------------------------------------------------- spmm_rows, narrow layout
+
+
+def _narrow_model(offsets, minors, weights, x, lay):
+    """csrc/spmm_row.cu:spmm_narrow_kernel in float32, every column at
+    once (a column pass repeats the same arithmetic): each tile's empty
+    rows written 0, its edges dealt to lay.groups groups a step, a step
+    inside the open row added to each group's own sum, any other step
+    through the segmented inclusive scan (shfl_up by d groups where the
+    rows agree, until no segment is longer than d), the open row's sum (a butterfly over the groups, or one
+    group's) added to the first segment, the last group of each segment
+    that ends inside the step writing its row; the two carry slots, then
+    the fix-up. Returns (y, writes per row, rows written as an empty row)."""
+    off = offsets.numpy().astype(np.int64)
+    v, e = len(off) - 1, int(off[-1])
+    f = x.shape[1]
+    majors = np.repeat(np.arange(v), np.diff(off))
+    k = lay.items_per_tile
+    rows, edges = (t.numpy().astype(np.int64) for t in
+                   _partition.merge_path_tiles(offsets, e, k))
+    n_tiles = len(rows) - 1
+    groups = lay.groups
+    gi = np.arange(groups)
+    y = np.full((v, f), np.nan, np.float32)
+    writes = np.zeros(v, np.int64)
+    zeroed = np.zeros(v, np.int64)
+    carry = np.full((n_tiles, 2, f), np.nan, np.float32)
+    big = np.iinfo(np.int64).max
+    for t in range(n_tiles):
+        r0, r1, e0, e1 = rows[t], rows[t + 1], edges[t], edges[t + 1]
+        head = off[r0] < e0
+
+        def write(r, val):
+            if r == r0 and head:
+                carry[t, 0] = val
+            elif r < r1:
+                y[r] = val
+                writes[r] += 1
+            else:
+                carry[t, 1] = val
+
+        for r in range(r0, r1):
+            if off[r] == off[r + 1]:
+                y[r] = 0.0
+                writes[r] += 1
+                zeroed[r] += 1
+        acc = np.zeros((groups, f), np.float32)
+        open_row, open_has, holder = r0, head, 0
+
+        def open_sum():
+            if holder >= 0:
+                return np.broadcast_to(acc[holder], (groups, f)).copy()
+            tot = acc.copy()
+            m = 1
+            while m < groups:
+                tot = tot + tot[gi ^ m]
+                m <<= 1
+            return tot
+
+        for es in range(e0, e1, groups):
+            eg = es + gi
+            ok = eg < e1
+            ec = np.minimum(eg, e - 1)
+            rg = np.where(ok, majors[ec], big)
+            wu = np.ones(groups, np.float32) if weights is None else weights[ec]
+            p = np.where(ok[:, None], wu[:, None] * x[minors[ec]], np.float32(0))
+            if (rg == open_row).all():
+                acc = acc + p
+                open_has, holder = True, -1
+                continue
+            tot = open_sum()
+            d = 1
+            while d < groups:
+                rd = np.where(gi >= d, rg[gi - d], -1)
+                pd = p[gi - d]
+                same = (gi >= d) & (rd == rg) & ok
+                if not same.any():  # no segment longer than d
+                    break
+                p = np.where(same[:, None], p + pd, p)
+                d <<= 1
+            p = np.where((rg == open_row)[:, None], p + tot, p)
+            if rg[0] != open_row and open_has:
+                write(open_row, tot[0])
+            n = int(ok.sum())
+            for g in range(n - 1):
+                if rg[g + 1] != rg[g]:
+                    write(rg[g], p[g])
+            open_row = rg[n - 1]
+            acc = np.where((gi == n - 1)[:, None], p, np.float32(0))
+            holder, open_has = n - 1, True
+        if open_has:
+            write(open_row, open_sum()[0])
+    _fixup_model(off, rows, edges, carry, y, writes, k, np.add)
+    return y, writes, zeroed
+
+
+def _spmm_case(deg, seed, f, weighted):
+    """(offsets, minors, weights, x) of a CSC with these in-degrees, skewed
+    sources, seeded normal weights and x."""
+    rng = np.random.default_rng(seed)
+    offsets = _offsets(deg)
+    v, e = len(deg), int(deg.sum())
+    minors = (rng.random(e) ** 3 * v).astype(np.int64)
+    weights = rng.normal(size=e).astype(np.float32) if weighted else None
+    x = rng.normal(size=(v, f)).astype(np.float32)
+    return offsets, minors, weights, x
+
+
+def _check_narrow(offsets, minors, weights, x, lay):
+    """The model writes every row once, empty rows as 0, and matches
+    spmm_rows_reference within 1e-5 of the row's sum of |w x|."""
+    from cugraph_tpu_torch.core.csr import CompressedAdj
+
+    off = offsets.numpy().astype(np.int64)
+    v, e = len(off) - 1, int(off[-1])
+    y, writes, zeroed = _narrow_model(offsets, minors, weights, x, lay)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(zeroed, np.diff(off) == 0)
+    majors = np.repeat(np.arange(v), np.diff(off))
+    adj = CompressedAdj(offsets, torch.from_numpy(minors.astype(np.int32)),
+                        torch.from_numpy(majors.astype(np.int32)),
+                        None if weights is None else torch.from_numpy(weights), v, v, e)
+    ref = spmm_row.spmm_rows_reference(adj, torch.from_numpy(x)).numpy()
+    wa = np.ones(e) if weights is None else np.abs(weights.astype(np.float64))
+    terms = wa[:, None] * np.abs(x[minors].astype(np.float64))
+    scale = np.zeros((v, x.shape[1]))
+    np.add.at(scale, majors, terms)
+    exact = np.zeros_like(scale)
+    np.add.at(exact, majors, (1.0 if weights is None else weights[:, None].astype(np.float64))
+              * x[minors].astype(np.float64))
+    for want in (ref.astype(np.float64), exact):
+        err = np.abs(y.astype(np.float64) - want)
+        assert (err[scale == 0] == 0).all()
+        assert (err / np.maximum(scale, 1e-30)).max() < 1e-5
+    return y
+
+
+NARROW_FS = [1, 2, 3, 8, 10, 16, 33, 64]
+
+
+@pytest.mark.parametrize("f", NARROW_FS)
+@pytest.mark.parametrize("k", [64, 1024, 4096])
+def test_narrow_layout_model_sums_every_row_once(f, k):
+    """Adversarial in-degrees (empty first, middle and last rows, a hub of
+    3,000 edges over many tiles at 64 items), weighted and unweighted."""
+    lay = spmm_row.spmm_layout(f)._replace(items_per_tile=k)
+    assert lay.narrow
+    deg = _adversarial_degrees(f * 10 + k, hub=3000)
+    _check_narrow(*_spmm_case(deg, f + k, f, weighted=True), lay)
+    if k == 64:
+        _check_narrow(*_spmm_case(deg, f + k + 1, f, weighted=False), lay)
+
+
+def _step_boundary_degrees(g, k, seed, n=160):
+    """In-degrees built row by row so that every fourth row's last edge
+    closes a step of g edges of the k-item tile that holds it (the step
+    counted from the tile's first edge), between runs of empty rows, short
+    rows and rows of g - 1 .. 2g + 1 edges; row 1 a hub of 20 g edges."""
+    rng = np.random.default_rng(seed)
+    deg, markers, edges = [0, 20 * g], [0, 20 * g + 1], 20 * g
+    for i in range(n):
+        pos = edges + len(deg)  # the row's first item
+        d = [None, int(rng.integers(0, 3)), 0, int(rng.integers(g - 1, 2 * g + 2))][i % 4]
+        if d is None:
+            tile = pos // k
+            e0 = tile * k - int(np.searchsorted(markers, tile * k))
+            d = (e0 - edges) % g or g
+            if pos + d > (tile + 1) * k:  # the row would leave its tile
+                d = 1
+        deg.append(d)
+        edges += d
+        markers.append(edges + len(deg) - 1)
+    return np.array(deg + [0, 0])
+
+
+@pytest.mark.parametrize("f", [8, 16, 1, 10])
+@pytest.mark.parametrize("k", [33, 64, 100])
+def test_narrow_layout_rows_ending_on_step_boundaries(f, k):
+    """Rows whose last edge closes a step of the G groups (at least 8,
+    counted on the plan), rows ending one edge before and after it, runs
+    of empty rows, a hub across tiles; tiles of k items."""
+    lay = spmm_row.spmm_layout(f)._replace(items_per_tile=k)
+    g = lay.groups
+    deg = _step_boundary_degrees(g, k, f * k)
+    offsets = _offsets(deg)
+    rows, edges = (t.numpy().astype(np.int64) for t in
+                   _partition.merge_path_tiles(offsets, int(deg.sum()), k))
+    ends = offsets.numpy()[1:].astype(np.int64)[deg > 0]
+    tile = np.searchsorted(edges, ends - 1, side="right") - 1
+    assert ((ends - edges[tile]) % g == 0).sum() >= 8
+    _check_narrow(*_spmm_case(deg, f * k, f, weighted=True), lay)
+
+
+def test_narrow_layout_butterfly_and_holder_agree():
+    """A tile inside one hub row (every step the open row's: the butterfly
+    over the groups) and short rows after it (one group holds the sum):
+    both give the float64 sums within 1e-5, and the result is the same
+    bits when run twice."""
+    lay = spmm_row.spmm_layout(8)._replace(items_per_tile=256)
+    deg = np.array([0, 1000, 3, 0, 17, 16, 15, 0])
+    case = _spmm_case(deg, 5, 8, weighted=True)
+    a = _check_narrow(*case, lay)
+    b, _, _ = _narrow_model(*case, lay)
+    np.testing.assert_array_equal(a, b)

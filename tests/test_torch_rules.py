@@ -54,7 +54,7 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "cugraph_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
+        ROOT / "chip_smoke.py", ROOT / "time_brandes.py", ROOT / "tests" / "_torch_dist_worker.py"]
     assert len(files) > 15
     for mod in ("dist/mg_algos.py", "algos/community.py", "algos/components.py",
                 "algos/cores.py", "prims/keyed.py", "prims/intersection.py",

@@ -4,7 +4,8 @@
 CPU (exact f32 there), relative 1e-5. "bf16": against a numpy oracle whose
 operands are rounded to bf16 (round to nearest even) and summed in float64,
 relative 1e-5; products of two bf16 values are exact in f32, so only the
-summation order differs. F = 128 and F = 40, weighted and unweighted.
+summation order differs. F = 128 (the kernel's wide layout), 40, 8 and 10
+(its narrow one), weighted and unweighted. The layout each F takes.
 """
 
 import numpy as np
@@ -14,7 +15,7 @@ import torch
 import cugraph_tpu as cg
 import cugraph_tpu_torch as ct
 from cugraph_tpu.prims.per_v import per_v_transform_reduce_incoming_e
-from cugraph_tpu_torch.prims.cuda import spmm_rows
+from cugraph_tpu_torch.prims.cuda import spmm_row, spmm_rows
 
 
 def _graph(seed, weighted, v=900, e=6000):
@@ -37,7 +38,7 @@ def _rel_err(y, ref, scale):
     return np.max(np.abs(y - ref) / np.maximum(scale, 1e-30))
 
 
-@pytest.mark.parametrize("f", [128, 40])
+@pytest.mark.parametrize("f", [128, 40, 8, 10])
 @pytest.mark.parametrize("weighted", [True, False])
 def test_spmm_rows_f32_matches_jax(f, weighted):
     srcs, dsts, w, v = _graph(f + weighted, weighted)
@@ -56,7 +57,7 @@ def test_spmm_rows_f32_matches_jax(f, weighted):
     assert _rel_err(got, want, scale) < 1e-5
 
 
-@pytest.mark.parametrize("f", [128, 40])
+@pytest.mark.parametrize("f", [128, 40, 8, 10])
 @pytest.mark.parametrize("weighted", [True, False])
 def test_spmm_rows_bf16_matches_rounded_oracle(f, weighted):
     srcs, dsts, w, v = _graph(10 + f + weighted, weighted)
@@ -86,3 +87,59 @@ def test_spmm_rows_use_weights_false_ignores_weights():
     )
     with pytest.raises(ValueError):
         spmm_rows(plain.csc(), x, precision="bf16_pair")
+
+
+@pytest.mark.parametrize("f,lanes,vec", [
+    (1, 1, 1), (2, 1, 2), (3, 4, 1), (4, 1, 4), (8, 2, 4), (10, 8, 2), (16, 4, 4),
+    (32, 8, 4), (33, 32, 1), (40, 16, 4), (64, 16, 4),
+])
+def test_spmm_layout_narrow(f, lanes, vec):
+    """Narrow up to NARROW_MAX_F: the fewest lanes (a power of two) whose
+    widest aligned loads span F, capped at 32 (F = 33 takes two column
+    passes of 32); G = 32 / L edges a step."""
+    lay = spmm_row.spmm_layout(f)
+    assert lay.narrow and (lay.lanes, lay.vec) == (lanes, vec)
+    assert lay.groups * lay.lanes == 32
+    assert lay.items_per_tile == spmm_row.NARROW_ITEMS_PER_TILE
+    assert f % lay.vec == 0 and (lay.lanes * lay.vec >= f or lay.lanes == 32)
+
+
+@pytest.mark.parametrize("f", [128, 129, 256, 1000])
+def test_spmm_layout_wide_from_128(f):
+    """F >= 128 keeps the wide layout: 32 lanes on one edge, float4 loads
+    where F % 4 == 0, else four scalar loads a lane."""
+    lay = spmm_row.spmm_layout(f)
+    assert not lay.narrow and (lay.lanes, lay.groups) == (32, 1)
+    assert lay.vec == (4 if f % 4 == 0 else 1)
+    assert lay.items_per_tile == spmm_row.ITEMS_PER_TILE
+    assert spmm_row.NARROW_MAX_F < 128
+
+
+@pytest.mark.parametrize("f,vec", [(65, 1), (101, 1), (127, 1), (200, 4)])
+def test_spmm_layout_wide_above_narrow_max(f, vec):
+    """Every F above NARROW_MAX_F takes the wide layout: float4 loads
+    (column passes of 128, the last partial at F = 200) or, F % 4 != 0,
+    four scalar loads a lane."""
+    lay = spmm_row.spmm_layout(f)
+    assert f > spmm_row.NARROW_MAX_F
+    assert not lay.narrow and (lay.lanes, lay.groups, lay.vec) == (32, 1, vec)
+
+
+@pytest.mark.parametrize("align", [16, 8, 4])
+def test_spmm_layout_narrow_has_a_kernel(align):
+    """Every narrow layout is an instance that csrc/spmm_row.cu builds: a
+    power of two of lanes up to 32, and never 32 lanes of float4 loads."""
+    built = {(lanes, vec) for lanes in (1, 2, 4, 8, 16, 32) for vec in (4, 2, 1)} - {(32, 4)}
+    for f in range(1, spmm_row.NARROW_MAX_F + 1):
+        lay = spmm_row.spmm_layout(f, align)
+        assert lay.narrow and (lay.lanes, lay.vec) in built, (f, lay)
+
+
+def test_spmm_layout_alignment_lowers_vec():
+    """x's data at an 8- or 4-byte offset takes narrower loads (more lanes
+    an edge); F < 1 raises."""
+    assert spmm_row.spmm_layout(8, 8)[:4] == (True, 4, 8, 2)
+    assert spmm_row.spmm_layout(8, 4)[:4] == (True, 8, 4, 1)
+    assert spmm_row.spmm_layout(128, 4).vec == 1
+    with pytest.raises(ValueError):
+        spmm_row.spmm_layout(0)
