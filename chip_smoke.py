@@ -70,6 +70,20 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    int64 ids, bad ids in both widths, 200 more calls each bit-equal to
    the first, back-to-back times and its time split into parts
    (assemble_split: host µs of each part, device µs of each launch).
+7b. Probes path: the entry point of the benchmarks/ probes
+   (cugraph_tpu_torch.microbench) at the probes' shapes (131,072 rows of
+   128; 2,048 tiles of 128 edges into a 32,768-row table) and at two
+   ceiling shapes (stream_scale at 2^21 rows, 1 GiB each way; gather_rows
+   from a 2^21-row table), launch counters set to 0 just before and read
+   just after; then each of stream_scale, gather_rows (f32 and bf16),
+   gather_window_sum, multiwin_reduce and seg_scan_rows on small, ragged
+   and adversarial inputs and at full shape against its plain version
+   (bit-equal, and on relaunch, but for the two kernels that add with
+   atomics: within TOL_PROBE_REL of the sum of the terms' |.|), an index
+   out of range raising GraphError, bounded, beside x.mul and
+   index_select (index_add_ over the window reduce's keys beside it,
+   labelled); the kernels' times are the entry point's own, on the same
+   inputs; the copy and gather rates on a line of their own.
 8. Sampling and link prediction: uniform_neighbor_sample on the weighted
    s21 graph (the main path's edges) from 1,024 seeded starts with
    fanouts [25, 10], without and with replacement, and [25, 10, -1];
@@ -167,8 +181,9 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    the trainer again at scale 18, where its blocks take spmm_rows; the
    trainer's loss must fall.
 
-The line before the last is one JSON object with a "kernels" list; the
-last line is {"ok": true, "device": {...}}. Without CUDA the script exits
+The line before the last is one JSON object with a "kernels" list (each
+kernel's launches_by_path names only the paths that count it); the last
+line is {"ok": true, "device": {...}}. Without CUDA the script exits
 non-zero and prints no result.
 """
 
@@ -338,6 +353,16 @@ MG_WALK_LENGTH = 80
 MG_BC_K = 8
 TOL_MG_BETWEENNESS_REL = 1e-5
 MG_STORE_FANOUT = 10
+# the probes path: the ceiling shapes beside the probes' own (stream_scale at
+# 1 GiB each way, past the 50 MB L2; gather_rows from s21's vertex count of
+# rows), and the tolerance of the two kernels that add with atomics, of the
+# sum of their terms' |.| an output
+PROBE_KERNELS = ("stream_scale", "gather_rows", "gather_window_sum", "multiwin_reduce",
+                 "seg_scan_rows")
+PROBE_HBM_ROWS = 1 << 21
+PROBE_HBM_TABLE_ROWS = 1 << 21
+TOL_PROBE_REL = 2e-6
+TOL_PROBE_ABS = 1e-6
 SERVICE_SCALE = 18  # the service path's R-MAT edge CSV
 EXAMPLE_SPARSE_SCALE = 18  # the example trainer's blocks above DENSE_MAX_VERTICES
 
@@ -1851,6 +1876,311 @@ def scan_assemble_path(g, seed: int) -> dict:
     log(f"scan/assemble path (E={e}, {n_steps} chunk steps): checks ok, "
         f"{json.dumps({k: {t: m.get(t) for t in timing} for k, m in out.items()})}")
     return dict(seconds=seconds, launches=launches, kernels=out)
+
+
+# ------------------------------------------------- the benchmarks/ probes
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, types and bits (NaN and -0.0 included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(a.contiguous().view(as_int), b.contiguous().view(as_int))
+
+
+def require_raises(fn, exc, msg: str) -> None:
+    try:
+        fn()
+    except exc:
+        return
+    raise RuntimeError(f"check failed: {msg}")
+
+
+def within_sum_tol(name: str, got, plain, abs_sum) -> float:
+    """Each output within TOL_PROBE_REL of the sum of its terms' |.| (plus
+    TOL_PROBE_ABS) of the plain version's: the atomics add in no fixed
+    order. Returns the largest absolute difference."""
+    err = (got.double() - plain.double()).abs()
+    lim = TOL_PROBE_REL * abs_sum.double() + TOL_PROBE_ABS
+    require(got.shape == plain.shape and bool((err <= lim).all()),
+            f"{name}: beyond {TOL_PROBE_REL} x sum|terms| + {TOL_PROBE_ABS} of the plain version")
+    return err.max().item() if err.numel() else 0.0
+
+
+def probe_edge_cases(seed: int) -> dict:
+    """The five probe kernels on small, ragged and adversarial inputs, each
+    against its plain version on the card: stream_scale at lengths off
+    whole float4s, 4 bytes off alignment and on IEEE specials; gather_rows
+    at widths that take each copy unit (16, 8, 4, 2 B), a table 4 and 2
+    bytes off alignment, one hot row, counts off whole groups of rows in
+    flight, int64 ids; gather_window_sum at 32 and 64 lanes, 1 to 300
+    edges a tile, every edge on one row; multiwin_reduce with every window
+    on one start and the last valid start; seg_scan_rows with a short last
+    tile, all or no flags, NaN flags, -0.0 and infinities. Each index out of
+    range raises GraphError."""
+    from cugraph_tpu_torch.prims.cuda import probes as pr
+    from cugraph_tpu_torch.utils.error import GraphError
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+    counts = dict.fromkeys(PROBE_KERNELS, 0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+
+    def randint(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=DEV)
+
+    specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-40,
+                             -1e-45, 3.4e38, 1.0], device=DEV)
+    xs = [randn(n) for n in (1, 3, 4, 5, 1027)] + [randn(4099)[1:], specials, randn(3, 128)]
+    require(xs[5].data_ptr() % 16 == 4, "the stream_scale slice starts 4 bytes in")
+    for x in xs:
+        for a in (2.0, 1.000001, -0.5):
+            require(same_bits(pr.stream_scale(x, a), pr.stream_scale_reference(x, a)),
+                    f"stream_scale({tuple(x.shape)}, {a}) differs from its plain version")
+            counts["stream_scale"] += 1
+
+    tables = [randn(37, w) for w in (1, 3, 100, 128, 200)]
+    tables += [randn(37, w).to(torch.bfloat16) for w in (1, 3, 128)]
+    tables += [randn(38, 1)[1:], randn(38, 1).to(torch.bfloat16)[1:]]
+    require(tables[-2].data_ptr() % 8 == 4 and tables[-1].data_ptr() % 4 == 2,
+            "the gather_rows table slices start 4 and 2 bytes in")
+    for table in tables:
+        n = table.shape[0]
+        for ids in (randint(n, 1), randint(n, 7), randint(n, 9), randint(n, 4, 33),
+                    torch.zeros(64, dtype=torch.int32, device=DEV),
+                    torch.full((13,), n - 1, device=DEV), randint(n, 0)):
+            require(same_bits(pr.gather_rows(table, ids), pr.gather_rows_reference(table, ids)),
+                    f"gather_rows({tuple(table.shape)} {table.dtype}, {tuple(ids.shape)}) "
+                    "differs from its plain version")
+            counts["gather_rows"] += 1
+        for bad in (-1, n):
+            require_raises(lambda: pr.gather_rows(table, torch.tensor([0, bad], device=DEV)),
+                           GraphError, f"gather_rows took id {bad} of a {n}-row table")
+
+    for width, tiles, edges in ((32, 4, 1), (64, 4, 7), (128, 8, 128), (32, 4, 300)):
+        table = randn(300, width)
+        srcs, dstl = randint(300, tiles, edges), randint(pr.WINDOW_ROWS, tiles, edges)
+        for d in (dstl, torch.full_like(dstl, pr.WINDOW_ROWS - 1)):
+            within_sum_tol(f"gather_window_sum({width}, {tiles}x{edges})",
+                           pr.gather_window_sum(table, srcs, d),
+                           pr.gather_window_sum_reference(table, srcs, d),
+                           pr.gather_window_sum_reference(table.abs(), srcs, d))
+            counts["gather_window_sum"] += 1
+    table, srcs, dstl = randn(300, 32), randint(300, 4, 5), randint(pr.WINDOW_ROWS, 4, 5)
+    for bad_s, bad_d in ((300, 0), (-1, 0), (0, pr.WINDOW_ROWS), (0, -1)):
+        s, d = srcs.clone(), dstl.clone()
+        s[1, 2], d[3, 4] = bad_s, bad_d
+        require_raises(lambda: pr.gather_window_sum(table, s, d), GraphError,
+                       f"gather_window_sum took srcs {bad_s} / dstl {bad_d}")
+
+    out_rows = 3
+    size = out_rows * pr.LANES
+    for n_win, starts in ((1, None), (3, "same"), (5, "last"), (4, None)):
+        vals = torch.rand(n_win * 8, pr.LANES, generator=gen, device=DEV)
+        gdl = randint(pr.CAP_V, n_win * 8, pr.LANES)
+        if starts == "same":
+            wstart = torch.zeros(n_win, dtype=torch.int32, device=DEV)
+            gdl = torch.full_like(gdl, pr.CAP_V - 1)
+        elif starts == "last":
+            wstart = torch.full((n_win,), size - pr.CAP_V, dtype=torch.int32, device=DEV)
+        else:
+            wstart = randint(size - pr.CAP_V + 1, n_win)
+        within_sum_tol(f"multiwin_reduce({n_win} windows, {starts})",
+                       pr.multiwin_reduce(wstart, vals, gdl, out_rows),
+                       pr.multiwin_reduce_reference(wstart, vals, gdl, out_rows),
+                       pr.multiwin_reduce_reference(wstart, vals.abs(), gdl, out_rows))
+        counts["multiwin_reduce"] += 1
+    for bad_w, bad_g in ((size - pr.CAP_V + 1, 0), (-1, 0), (0, pr.CAP_V), (0, -1)):
+        wstart, gdl = torch.zeros(1, dtype=torch.int64, device=DEV), randint(pr.CAP_V, 8, pr.LANES)
+        wstart[0], gdl[5, 7] = bad_w, bad_g
+        vals = torch.rand(8, pr.LANES, generator=gen, device=DEV)
+        require_raises(lambda: pr.multiwin_reduce(wstart, vals, gdl, out_rows), GraphError,
+                       f"multiwin_reduce took wstart {bad_w} / gdl {bad_g}")
+
+    for rows, width in ((1, 1), (511, 3), (512, 128), (513, 128), (1000, 200), (1537, 5)):
+        v = randn(rows, width)
+        v[0, 0], v[-1, -1] = -0.0, float("inf")
+        for flags in ((torch.rand(rows, width, generator=gen, device=DEV) < 0.1).float(),
+                      torch.ones(rows, width, device=DEV), torch.zeros(rows, width, device=DEV),
+                      torch.where(torch.rand(rows, width, generator=gen, device=DEV) < 0.05,
+                                  float("nan"), 0.0)):
+            require(same_bits(pr.seg_scan_rows(v, flags), pr.seg_scan_rows_reference(v, flags)),
+                    f"seg_scan_rows({rows}, {width}) differs from its plain version")
+            counts["seg_scan_rows"] += 1
+    sync()
+    log(f"probe edge cases: every check passed, {json.dumps(counts)}")
+    return counts
+
+
+def probes_path(seed: int) -> dict:
+    """The benchmarks/ probes' entry point (cugraph_tpu_torch.microbench)
+    at the probes' shapes and at the two ceiling shapes (stream_scale at
+    2^21 rows, gather_rows from a 2^21-row table), launch counters set to
+    0 just before and read just after; then each kernel on small,
+    adversarial inputs and at full shape against its plain version,
+    timed, bounded, beside its library yardstick, and the measured copy
+    and gather rates on a line of their own."""
+    from cugraph_tpu_torch import microbench as mb
+    from cugraph_tpu_torch.prims.cuda import probes as pr
+
+    counters = {name: getattr(pr, name) for name in PROBE_KERNELS}
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    runs = [mb.run(device=DEV, seed=seed),
+            mb.run(rows=PROBE_HBM_ROWS, names=("k1_copy",), device=DEV, seed=seed),
+            mb.run(table_rows=PROBE_HBM_TABLE_ROWS, names=("gather_f32", "gather_bf16"),
+                   device=DEV, seed=seed)]
+    sync()
+    seconds = time.perf_counter() - t
+    launches = {n: c.launches for n, c in counters.items()}
+    for r in sum(runs, []):
+        log(f"  {mb.line(r)}  [rows={r['rows']} table_rows={r['table_rows']}]")
+    log(f"probes path launches: {json.dumps(launches)}")
+    require(all(launches.values()), "the probes' entry point must launch every probe kernel")
+    # the kernels' times are the entry point's, on the same inputs as the
+    # checks below: ms (single wrapper calls), back_to_back_ms (the wrapper
+    # back to back) and kernel_b2b_ms (the launch alone, back to back)
+    probe, hbm_copy, hbm_gather = ({r["name"]: r for r in run} for run in runs)
+
+    def times(r):
+        return {k: r[k] for k in ("ms", "back_to_back_ms", "kernel_b2b_ms")}
+
+    edge = probe_edge_cases(seed)
+    inp = mb.probe_inputs(sorted(set(sum(mb.NEEDS.values(), ()))), seed=seed, device=DEV)
+    big = mb.probe_inputs(("x",), rows=PROBE_HBM_ROWS, seed=seed, device=DEV)
+    big.update(mb.probe_inputs(("table", "srcs"), table_rows=PROBE_HBM_TABLE_ROWS, seed=seed,
+                               device=DEV))
+    out = {}
+
+    # stream_scale: bit-equal, at the probe's 64 MB and at 1 GiB each way
+    def copy_entry(x, a, r):
+        y = pr.stream_scale(x, a)
+        require(same_bits(y, pr.stream_scale_reference(x, a)),
+                f"stream_scale({x.shape[0]} rows, {a}) differs from its plain version")
+        check_relaunch("stream_scale", y, lambda: pr.stream_scale(x, a))
+        b_ms, b_by = bound(8 * x.numel(), x.numel())
+        return dict(max_abs_err=0.0, rows=x.shape[0], **times(r),
+                    plain_ms=median_ms(lambda: pr.stream_scale_reference(x, a), 20),
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=median_ms(lambda: x.mul(a), 20),
+                    library_back_to_back_ms=back_to_back_ms(lambda: x.mul(a), 20))
+
+    out["stream_scale"] = dict(
+        copy_entry(inp["x"], mb.COPY_SCALE["k1_copy"], probe["k1_copy"]),
+        tol="bit-equal to the plain version (and on relaunch)",
+        b0=copy_entry(inp["x"], mb.COPY_SCALE["b0_copy"], probe["b0_copy"]),
+        hbm=copy_entry(big["x"], mb.COPY_SCALE["k1_copy"], hbm_copy["k1_copy"]))
+
+    # gather_rows: bit-equal, f32 and bf16, from the L2-resident table and from HBM
+    def gather_entry(table, srcs, r):
+        y = pr.gather_rows(table, srcs)
+        require(same_bits(y, pr.gather_rows_reference(table, srcs)),
+                f"gather_rows({table.shape[0]} rows, {table.dtype}) differs from its plain version")
+        check_relaunch("gather_rows", y, lambda: pr.gather_rows(table, srcs))
+        e, ids64 = srcs.numel(), srcs.reshape(-1).long()
+        distinct = int(torch.unique(srcs).numel())
+        row = table.shape[1] * table.element_size()
+        b_ms, b_by = bound(4 * e + distinct * row + e * row, 0)
+        return dict(max_abs_err=0.0, table_rows=table.shape[0], dtype=str(table.dtype),
+                    edges=e, distinct_rows=distinct, **times(r),
+                    plain_ms=median_ms(lambda: pr.gather_rows_reference(table, srcs), 20),
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=median_ms(lambda: table.index_select(0, ids64), 20),
+                    library_back_to_back_ms=back_to_back_ms(
+                        lambda: table.index_select(0, ids64), 20),
+                    grows_per_s=e / r["kernel_b2b_ms"] / 1e6,
+                    gbps=2 * e * row / r["kernel_b2b_ms"] / 1e6)
+
+    table, srcs = inp["table"], inp["srcs"]
+    out["gather_rows"] = dict(
+        gather_entry(table, srcs, probe["gather_f32"]),
+        tol="bit-equal to the plain version (and on relaunch)",
+        bf16=gather_entry(table.to(torch.bfloat16), srcs, probe["gather_bf16"]),
+        hbm=gather_entry(big["table"], big["srcs"], hbm_gather["gather_f32"]),
+        hbm_bf16=gather_entry(big["table"].to(torch.bfloat16), big["srcs"],
+                              hbm_gather["gather_bf16"]))
+    for dtype in (torch.float32, torch.bfloat16):
+        tb = table.to(dtype)
+        require(same_bits(mb.gather_chain(tb, srcs, 3),
+                          mb.gather_chain(tb, srcs, 3, lambda t: pr.gather_rows_reference(t, srcs))),
+                f"the {dtype} gather chain differs from its plain version")
+
+    # gather_window_sum: within the sum tolerance of the plain version
+    dstl = inp["dstl"]
+    y = pr.gather_window_sum(table, srcs, dstl)
+    plain = pr.gather_window_sum_reference(table, srcs, dstl)
+    abs_sum = pr.gather_window_sum_reference(table.abs(), srcs, dstl)
+    err = within_sum_tol("gather_window_sum", y, plain, abs_sum)
+    within_sum_tol("gather_window_sum (relaunch)", pr.gather_window_sum(table, srcs, dstl), plain,
+                   abs_sum)
+    e = srcs.numel()
+    distinct = int(torch.unique(srcs).numel())
+    b_ms, b_by = bound(8 * e + distinct * 512 + y.numel() * 4, e * 128)
+    out["gather_window_sum"] = dict(
+        max_abs_err=err, tol=f"{TOL_PROBE_REL} x sum|terms| + {TOL_PROBE_ABS} a row entry "
+        "(shared-memory atomics add in no fixed order)",
+        edges=e, windows=y.shape[0] // pr.WINDOW_ROWS, distinct_rows=distinct,
+        relaunch_bit_equal=same_bits(pr.gather_window_sum(table, srcs, dstl), y),
+        **times(probe["gather_window_sum"]),
+        plain_ms=median_ms(lambda: pr.gather_window_sum_reference(table, srcs, dstl), 20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none")
+
+    # multiwin_reduce: within the sum tolerance; index_add_ over the
+    # precomputed keys (global atomics alone) timed beside it
+    wstart, vals, gdl = inp["wstart"], inp["vals"], inp["gdl"]
+    rows = mb.MWR_OUT_ROWS
+    y = pr.multiwin_reduce(wstart, vals, gdl, rows)
+    plain = pr.multiwin_reduce_reference(wstart, vals, gdl, rows)
+    abs_sum = pr.multiwin_reduce_reference(wstart, vals.abs(), gdl, rows)
+    err = within_sum_tol("multiwin_reduce", y, plain, abs_sum)
+    within_sum_tol("multiwin_reduce (relaunch)", pr.multiwin_reduce(wstart, vals, gdl, rows),
+                   plain, abs_sum)
+    keys = (wstart.long().repeat_interleave(pr.WINDOW_EDGE_ROWS * pr.LANES)
+            + gdl.reshape(-1).long())
+    flat_vals, acc = vals.reshape(-1), torch.zeros(rows * pr.LANES, device=DEV)
+    n = vals.numel()
+    b_ms, b_by = bound(8 * n + 4 * wstart.numel() + y.numel() * 4, n)
+    out["multiwin_reduce"] = dict(
+        max_abs_err=err, tol=f"{TOL_PROBE_REL} x sum|terms| + {TOL_PROBE_ABS} a slot "
+        "(atomics add in no fixed order)",
+        edges=n, windows=wstart.numel(), out_rows=rows, **times(probe["k6_multiwin_reduce"]),
+        plain_ms=median_ms(lambda: pr.multiwin_reduce_reference(wstart, vals, gdl, rows), 20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
+        index_add_over_keys_ms=median_ms(lambda: acc.index_add_(0, keys, flat_vals), 20),
+        index_add_over_keys_b2b_ms=back_to_back_ms(lambda: acc.index_add_(0, keys, flat_vals), 20))
+
+    # seg_scan_rows: bit-equal
+    v, flags = inp["v"], inp["flags"]
+    y = pr.seg_scan_rows(v, flags)
+    require(same_bits(y, pr.seg_scan_rows_reference(v, flags)),
+            "seg_scan_rows differs from its plain version at full shape")
+    check_relaunch("seg_scan_rows", y, lambda: pr.seg_scan_rows(v, flags))
+    n = v.numel()
+    b_ms, b_by = bound(12 * n, n)
+    out["seg_scan_rows"] = dict(
+        max_abs_err=0.0, tol="bit-equal to the plain version (and on relaunch)", rows=v.shape[0],
+        **times(probe["k8_seg_scan_reduce"]),
+        plain_ms=median_ms(lambda: pr.seg_scan_rows_reference(v, flags), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none")
+
+    g, s = out["gather_rows"], out["stream_scale"]
+    gathers = {"L2 f32": g, "L2 bf16": g["bf16"], "HBM f32": g["hbm"], "HBM bf16": g["hbm_bf16"]}
+    rates = dict(
+        copy_GBps={f"{m['rows']} rows": 8 * m["rows"] * 128 / m["kernel_b2b_ms"] / 1e6
+                   for m in (s, s["hbm"])},
+        gather_Grows_per_s={k: m["grows_per_s"] for k, m in gathers.items()},
+        gather_GBps={k: m["gbps"] for k, m in gathers.items()},
+        multiwin_shared_then_global_ms=out["multiwin_reduce"]["kernel_b2b_ms"],
+        index_add_global_only_ms=out["multiwin_reduce"]["index_add_over_keys_b2b_ms"])
+    log(f"probe rates (back-to-back, the card's time): {json.dumps(rates)}")
+    timing = ("ms", "back_to_back_ms", "kernel_b2b_ms", "plain_ms", "bound_ms", "library_ms")
+    log(f"probes path: checks ok, "
+        f"{json.dumps({k: {t: m.get(t) for t in timing} for k, m in out.items()})}")
+    return dict(seconds=seconds, launches=launches, kernels=out, rates=rates, edge_cases=edge,
+                microbench=sum(runs, []))
 
 
 # ------------------------------------------------- sampling path
@@ -3864,6 +4194,12 @@ SOURCES = {
     "cumsum_flat": ("cugraph_tpu_torch/csrc/scan.cu", "cugraph_tpu/prims/pallas/scan.py:41"),
     "assemble_chunks": ("cugraph_tpu_torch/csrc/assemble.cu",
                         "cugraph_tpu/prims/pallas/spmv2.py:1605"),
+    "stream_scale": ("cugraph_tpu_torch/csrc/probes.cu", "benchmarks/microbench_tpu.py:56"),
+    "gather_rows": ("cugraph_tpu_torch/csrc/probes.cu", "benchmarks/microbench4_rowgather.py:42"),
+    "gather_window_sum": ("cugraph_tpu_torch/csrc/probes.cu",
+                          "benchmarks/microbench4_rowgather.py:68"),
+    "multiwin_reduce": ("cugraph_tpu_torch/csrc/probes.cu", "benchmarks/microbench_tpu.py:294"),
+    "seg_scan_rows": ("cugraph_tpu_torch/csrc/probes.cu", "benchmarks/microbench_tpu.py:354"),
 }
 ALSO_REPLACES = {
     "spmv_sum": [
@@ -3884,6 +4220,18 @@ ALSO_REPLACES = {
     ],
     "cumsum_flat": ["cugraph_tpu/prims/pallas/scan.py:59"],
     "assemble_chunks": [],
+    # a site as def / pallas_call; microbench3_tpu.py's bodies go through
+    # block_call (29 / 34)
+    "stream_scale": ["benchmarks/microbench_tpu.py:67",
+                     "benchmarks/microbench3_tpu.py:69 (copy_kern, block_call 29 / 34)"],
+    "gather_rows": ["benchmarks/microbench4_rowgather.py:53",
+                    "benchmarks/microbench5_rowgather.py:26 / 36",
+                    "benchmarks/microbench6_bf16row.py:26 / 36"],
+    "gather_window_sum": ["benchmarks/microbench4_rowgather.py:120"],
+    "multiwin_reduce": ["benchmarks/microbench_tpu.py:335",
+                        "benchmarks/microbench3_tpu.py:187 (mwr_kern; mwr_call 219 / 220)"],
+    "seg_scan_rows": ["benchmarks/microbench_tpu.py:379",
+                      "benchmarks/microbench3_tpu.py:237 (seg_kern, block_call 29 / 34)"],
 }
 
 
@@ -3946,6 +4294,10 @@ def main() -> int:
     # weighted graph's CSC weights and the same E
     scan = scan_assemble_path(g, args.seed)
 
+    # 7b. the benchmarks/ probes' entry point and its five kernels
+    probes = probes_path(args.seed)
+    torch.cuda.empty_cache()
+
     # 8. sampling and link prediction
     spath = sampling_path(g, min(SMALL_SCALE, args.scale), args.seed)
     del g
@@ -3998,31 +4350,32 @@ def main() -> int:
     expath["path_s"] = time.perf_counter() - t
     log(f"examples path: {expath['path_s']:.1f} s")
 
-    def on_path(name, launches):
-        return sum(n.get(name, 0) for n in launches.values())
+    def counted(name, launches):
+        """A path's launches of ``name``: its count where ``launches`` is
+        {kernel: n}, the sum over its phases where it is {phase: {kernel:
+        n}}; None where the path holds no counter of ``name``."""
+        if not isinstance(launches.get(name, {}), dict):
+            return launches[name]
+        got = [n[name] for n in launches.values() if isinstance(n, dict) and name in n]
+        return sum(got) if got else None
 
+    mg_launches = {k: n + mgp["extra_launches"][k] for k, n in mgp["launches"].items()}
+    paths = dict(main_path=path["launches"], mg_path=mg_launches, weighted_path=wpath["launches"],
+                 gradient_path=path["gradient"]["launches"], scan_assemble_path=scan["launches"],
+                 probes_path=probes["launches"], sampling_path=spath["launches"],
+                 community_path=cpath["launches"], api_path=apath["launches"],
+                 train_path=tpath["launches"], mg_weighted_path=mwpath["launches"],
+                 mg_analytics_path=mapath["launches"], fault_path=fpath["launches"],
+                 mg_community_path=mcpath["launches"], service_path=svpath["launches"],
+                 examples_path=expath["launches"])
     lines = []
-    for name, m in dict(kernels, **scan["kernels"]).items():
+    for name, m in dict(kernels, **scan["kernels"], **probes["kernels"]).items():
         source, replaces = SOURCES[name]
-        if name in scan["launches"]:
-            launches = scan["launches"][name]
-            by_path = dict(scan_assemble_path=launches)
-        else:
-            launches = path["launches"][name]
-            by_path = dict(main_path=launches,
-                           mg_path=mgp["launches"][name] + mgp["extra_launches"][name],
-                           weighted_path=on_path(name, wpath["launches"]),
-                           gradient_path=path["gradient"]["launches"].get(name, 0))
-        by_path["sampling_path"] = on_path(name, spath["launches"])
-        by_path["community_path"] = on_path(name, cpath["launches"])
-        by_path["api_path"] = on_path(name, apath["launches"])
-        by_path["train_path"] = on_path(name, tpath["launches"])
-        by_path["mg_weighted_path"] = on_path(name, mwpath["launches"])
-        by_path["mg_analytics_path"] = on_path(name, mapath["launches"])
-        by_path["fault_path"] = fpath["launches"].get(name, 0)
-        by_path["mg_community_path"] = on_path(name, mcpath["launches"])
-        by_path["service_path"] = on_path(name, svpath["launches"])
-        by_path["examples_path"] = on_path(name, expath["launches"])
+        # only the paths that count the kernel: each count was set to 0
+        # just before the path and read just after it
+        by_path = {p: n for p, l in paths.items() if (n := counted(name, l)) is not None}
+        own = next(p for p in ("scan_assemble_path", "probes_path", "main_path") if p in by_path)
+        launches = by_path[own]
         extra = {"weighted": weighted[name]} if name in weighted else {}
         if name in mgp["block"]:
             extra["mg_block"] = mgp["block"][name]
@@ -4036,7 +4389,8 @@ def main() -> int:
     log(f"total: {time.perf_counter() - t_start:.1f} s after device setup")
     print(json.dumps({"kernels": lines, "scale": args.scale, "main_path": path,
                       "mg_path": mgp, "weighted_path": wpath, "scan_assemble_path": scan,
-                      "sampling_path": spath, "community_path": cpath, "api_path": apath,
+                      "probes_path": probes, "sampling_path": spath, "community_path": cpath,
+                      "api_path": apath,
                       "train_path": tpath, "mg_weighted_path": mwpath,
                       "mg_analytics_path": mapath, "fault_path": fpath,
                       "mg_community_path": mcpath, "service_path": svpath,

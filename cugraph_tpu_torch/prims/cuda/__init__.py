@@ -8,6 +8,10 @@
   ``segment_sums_from_cumsum``.
 - assemble: ``assemble_chunks``, the chunk-granular row copy
   (csrc/assemble.cu).
+- probes: ``stream_scale``, ``gather_rows``, ``gather_window_sum``,
+  ``multiwin_reduce`` and ``seg_scan_rows``, the TPU probes of
+  ``benchmarks/`` (csrc/probes.cu); their entry point is
+  ``cugraph_tpu_torch.microbench``.
 - build: nvcc build into build/cugraph_tpu_torch/ and ctypes loading.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
@@ -17,6 +21,18 @@ version (``*_reference``, same module) for a CPU tensor.
 import torch
 
 from .assemble import assemble_chunks, assemble_chunks_reference
+from .probes import (
+    gather_rows,
+    gather_rows_reference,
+    gather_window_sum,
+    gather_window_sum_reference,
+    multiwin_reduce,
+    multiwin_reduce_reference,
+    seg_scan_rows,
+    seg_scan_rows_reference,
+    stream_scale,
+    stream_scale_reference,
+)
 from .scan import cumsum_flat, cumsum_flat_reference, segment_sums_from_cumsum
 from .spmm_row import SpmmRowsFunction, spmm_rows, spmm_rows_reference
 from .spmv import spmv_minplus, spmv_minplus_reference, spmv_sum, spmv_sum_reference

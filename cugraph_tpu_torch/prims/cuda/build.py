@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cugraph_tpu_torch"
-SOURCES = ("spmv", "spmm_row", "scan", "assemble")
+SOURCES = ("spmv", "spmm_row", "scan", "assemble", "probes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 
 # The C interface of each library: every pointer and the stream are
 # c_void_p, so ctypes never cuts them to 32 bits.
-_VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_VP, _INT, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "spmv": {
         # offsets, minors, weights, x, tile_row, tile_edge, carry, y, tiles,
@@ -59,6 +59,18 @@ SIGNATURES = {
                                 _INT, _VP],
         # out: the new event
         "cgt_assemble_event": [ctypes.POINTER(_VP)],
+    },
+    "probes": {
+        # x, o, n, a, vec, stream
+        "cgt_stream_scale": [_VP, _VP, _I64, _F32, _INT, _VP],
+        # table, ids, out, n_rows, row_bytes, vec_bytes, stream
+        "cgt_gather_rows": [_VP, _VP, _VP, _I64, _INT, _INT, _VP],
+        # table, srcs, dstl, out, n_windows, width, edges_per_window, stream
+        "cgt_gather_window_sum": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+        # wstart, vals, gdl, out, n_windows, stream
+        "cgt_multiwin_reduce": [_VP, _VP, _VP, _VP, _INT, _VP],
+        # v, flags, out, rows, width, stream
+        "cgt_seg_scan_rows": [_VP, _VP, _VP, _I64, _INT, _VP],
     },
 }
 

@@ -21,7 +21,7 @@ import torch
 
 import _torch_dist_worker as worker
 import cugraph_tpu_torch as ct
-from cugraph_tpu_torch import api, experimental, gnn, service
+from cugraph_tpu_torch import api, experimental, gnn, microbench, service
 from cugraph_tpu_torch.examples import community_detection, train_graphsage
 from cugraph_tpu_torch.core.renumber import NumberMap
 from cugraph_tpu_torch.core.serialize import deserialize_graph, load_graph
@@ -31,12 +31,17 @@ from cugraph_tpu_torch.gnn import GCN, GraphSAGE
 from cugraph_tpu_torch.prims.cuda import (
     assemble_chunks,
     cumsum_flat,
+    gather_rows,
+    gather_window_sum,
+    multiwin_reduce,
     pull_aggregate,
     push_aggregate,
+    seg_scan_rows,
     segment_sums_from_cumsum,
     spmm_rows,
     spmv_minplus,
     spmv_sum,
+    stream_scale,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,7 +76,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "service/server.py", "service/client.py", "examples/train_graphsage.py",
                 "examples/community_detection.py", "dist/mg_sampling.py",
                 "dist/mg_similarity.py", "dist/mg_centrality.py",
-                "dist/mg_property_graph.py"):
+                "dist/mg_property_graph.py", "prims/cuda/probes.py", "microbench.py"):
         assert ROOT / "cugraph_tpu_torch" / mod in files
     bad = [
         (str(f.relative_to(ROOT)), mod)
@@ -162,6 +167,9 @@ ENTRY_POINTS = {
     "CugraphTpuServer": lambda: service.CugraphTpuServer(port=0),
     "examples.train_graphsage": lambda: train_graphsage.main(["--scale", "4", "--steps", "1"]),
     "examples.community_detection": lambda: community_detection.main([]),
+    "microbench.main": lambda: microbench.main([]),
+    "microbench.run": lambda: microbench.run(),
+    "microbench.probe_inputs": lambda: microbench.probe_inputs(["x"]),
 }
 _CARD_MESH = types.SimpleNamespace(shape=(1, 1), rows=1, cols=1, i=0, j=0,
                                    device=torch.device("cuda"))
@@ -202,7 +210,8 @@ def test_default_device_without_cuda_raises(name, monkeypatch):
 
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):
-    counters = (spmv_sum, spmv_minplus, spmm_rows, cumsum_flat, assemble_chunks)
+    counters = (spmv_sum, spmv_minplus, spmm_rows, cumsum_flat, assemble_chunks, stream_scale,
+                gather_rows, gather_window_sum, multiwin_reduce, seg_scan_rows)
     before = [fn.launches for fn in counters]
     rng = np.random.default_rng(0)
     src, dst = rng.integers(0, 50, 300), rng.integers(0, 50, 300)
@@ -229,6 +238,16 @@ def test_cpu_tensors_launch_no_kernel(monkeypatch):
     traversal.two_hop_neighbors(g)
     segment_sums_from_cumsum(cumsum_flat(torch.ones(g.num_edges)), g.csc().offsets, 50)
     assemble_chunks(x[:48].view(12, 4), torch.tensor([2, 0]), torch.tensor([1, 0]), 2, 6)
+    monkeypatch.setattr(microbench, "N_TILES", 8)
+    monkeypatch.setattr(microbench, "REPS", 1)
+    microbench.main(["--device", "cpu", "--rows", "512", "--table-rows", "64"])
+    table = x[:48].view(12, 4).repeat(1, 8)
+    stream_scale(table, 2.0)
+    gather_rows(table.to(torch.bfloat16), torch.tensor([3, 0, 11]))
+    ids = torch.ones(4, 2, dtype=torch.int32)
+    gather_window_sum(table, ids, ids)
+    multiwin_reduce(torch.tensor([0]), x[:8, None].repeat(1, 128), torch.zeros(8, 128).long(), 2)
+    seg_scan_rows(table, (table > 0.5).float())
     gs = ct.from_edgelist(src, dst, num_vertices=50, symmetrize=True, device="cpu")
     ct.weakly_connected_components(g)
     ct.strongly_connected_components(g)
