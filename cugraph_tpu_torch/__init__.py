@@ -33,7 +33,15 @@ to find. The layers, from the entry points down:
   ``experimental`` (datasets, an nx-style namespace) and ``testing``
   (the small datasets).
 - ``core.serialize`` the JAX package's npz wire format for a graph;
-  ``utils.validation`` (the expensive checks) and ``utils.timer``.
+  ``utils.validation`` (the expensive checks).
+- ``utils.timer`` the port's tracing: ``span``, which marks calls,
+  iterations, levels, blocking reads, kernel launches and set-up phases
+  (``cgt/...``) as events of a running ``torch.profiler``'s trace and is a
+  shared no-op without one; ``setup_spans``, the set-up phases of this
+  process (this import, kernel loads and builds, ingest), kept with their
+  host and device times whether a profiler ran or not; and
+  ``profiler_trace``, which writes a Chrome trace of a block, spans and
+  kernels together.
 - ``dist``       the multi-GPU layer on ``torch.distributed`` (imported on
   its own): the 2D edge partition, one process per card, MG PageRank,
   BFS, GNN aggregation and the GraphSAGE forward.
@@ -44,8 +52,12 @@ the kernels' plain versions on the CPU. Algorithms run on the graph's
 device.
 """
 
-from . import prims, utils
-from .algos import (
+import time as _time
+
+_import_start = _time.perf_counter()
+
+from . import prims, utils  # noqa: E402
+from .algos import (  # noqa: E402
     all_pairs_similarity,
     analyze_clustering_edge_cut,
     analyze_clustering_modularity,
@@ -82,16 +94,25 @@ from .algos import (
     triangle_count,
     weakly_connected_components,
 )
-from .core import (
+from .core import (  # noqa: E402
     CompressedAdj,
     Graph,
     apply_renumber_map,
     compute_renumber_map,
     from_edgelist,
 )
-from .core import renumber
-from .generators import mg_rmat_edgelist, rmat_chunk_source, rmat_edgelist, scramble_vertex_ids
-from .generators import simple as simple_generators
-from .sampling import node2vec, random_walks, uniform_neighbor_sample
+from .core import renumber  # noqa: E402
+from .generators import (  # noqa: E402
+    mg_rmat_edgelist,
+    rmat_chunk_source,
+    rmat_edgelist,
+    scramble_vertex_ids,
+)
+from .generators import simple as simple_generators  # noqa: E402
+from .sampling import node2vec, random_walks, uniform_neighbor_sample  # noqa: E402
+from .utils import timer as _timer  # noqa: E402
 
 __version__ = "0.1.0"
+
+_timer.record_setup_span("cgt/setup.import", _import_start, _time.perf_counter())
+del _time, _timer, _import_start

@@ -7,7 +7,8 @@ handling :218, convergence :287, and hits_impl.cuh). Each PageRank
 iteration is one ``pull_aggregate``, and each HITS iteration one
 ``pull_aggregate`` and one ``push_aggregate``: the ``spmv_sum`` kernel over
 the CSC and the CSR on the card. The convergence test reads the L1 diff on
-the host once per iteration.
+the host once per iteration. ``pagerank`` marks its call, each iteration
+and each blocking read with spans (``utils/timer.py``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from ..prims.cuda import pull_aggregate, push_aggregate
 from ..utils.device import as_tensor
 from ..utils.dtypes import WEIGHT_DTYPE
 from ..utils.error import expects, expects_vertex_ids
+from ..utils.timer import span, spanned
 
 
+@spanned("cgt/algorithms.pagerank")
 def pagerank(
     g: Graph,
     alpha: float = 0.85,
@@ -44,7 +47,8 @@ def pagerank(
     dev = g.device
     if personalization is not None:
         ids = as_tensor(personalization[0], torch.int64, dev).reshape(-1)
-        expects_vertex_ids(ids, v, "personalization")
+        with span("cgt/sync.pagerank.personalization"):
+            expects_vertex_ids(ids, v, "personalization")
         reset = torch.zeros(v, dtype=WEIGHT_DTYPE, device=dev).index_add_(
             0, ids, as_tensor(personalization[1], WEIGHT_DTYPE, dev).reshape(-1)
         )
@@ -63,12 +67,15 @@ def pagerank(
 
     diff, it = float("inf"), 0
     while diff > v * tol and it < max_iterations:
-        agg = pull_aggregate(g, pr * inv_out)
-        # dangling mass is redistributed by the reset vector (ref :218)
-        dangling_sum = torch.where(dangling, pr, 0.0).sum()
-        new = alpha * (agg + dangling_sum * reset) + (1.0 - alpha) * reset
-        diff = float((new - pr).abs().sum())  # ref :278 L1 diff
-        pr, it = new, it + 1
+        with span("cgt/step.pagerank.iteration"):
+            agg = pull_aggregate(g, pr * inv_out)
+            # dangling mass is redistributed by the reset vector (ref :218)
+            dangling_sum = torch.where(dangling, pr, 0.0).sum()
+            new = alpha * (agg + dangling_sum * reset) + (1.0 - alpha) * reset
+            l1 = (new - pr).abs().sum()  # ref :278 L1 diff
+            with span("cgt/sync.pagerank.diff"):
+                diff = float(l1)
+            pr, it = new, it + 1
     if fail_on_nonconvergence:
         expects(diff <= v * tol, "PageRank failed to converge")
     return pr, it

@@ -13,7 +13,8 @@ frontier in-neighbour, and is then the smallest such id, the predecessor.
 Ids ride f32 exactly up to V = 2^24. From V >= 2^22 on, levels whose
 frontier is small (out-degree sum <= cap_e and size <= cap_v) take a
 compacted push instead (``_sparse_bfs_level``), as in the JAX package;
-above 2^24 every level does.
+above 2^24 every level does. ``bfs`` marks its call, each level (sparse or
+dense) and each blocking read with spans (``utils/timer.py``).
 
 SSSP is Bellman-Ford. A weighted graph with E >= 2^18 and V <= 2^24 (the
 JAX package's gate for its min-plus layout) takes full sweeps of the
@@ -35,6 +36,7 @@ from ..prims.reduce_ops import ANY, MINIMUM
 from ..utils.device import as_tensor
 from ..utils.dtypes import INT32_MAX, VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects, expects_vertex_ids
+from ..utils.timer import span, spanned
 
 INVALID_DISTANCE = INT32_MAX  # ref: unreachable = INT_MAX
 INVALID_VERTEX = -1  # ref: no predecessor = invalid vertex id
@@ -48,13 +50,15 @@ SSSP_SWEEP_MAX_VERTICES = 1 << 24
 
 def _source_mask(g: Graph, sources) -> torch.Tensor:
     v = g.num_vertices
-    sources = as_tensor(sources, torch.int64, g.device).reshape(-1)
-    expects(
-        sources.numel() == 0 or bool(((sources >= 0) & (sources < v)).all()),
-        "source vertex out of range",
-    )
-    mask = torch.zeros(v, dtype=torch.bool, device=g.device)
-    mask[sources] = True
+    # the ids and the mask's True are copied from the host, each copy a wait
+    with span("cgt/sync.bfs.source_range"):
+        sources = as_tensor(sources, torch.int64, g.device).reshape(-1)
+        expects(
+            sources.numel() == 0 or bool(((sources >= 0) & (sources < v)).all()),
+            "source vertex out of range",
+        )
+        mask = torch.zeros(v, dtype=torch.bool, device=g.device)
+        mask[sources] = True
     return mask
 
 
@@ -64,7 +68,8 @@ def _out_edges(offsets: torch.Tensor, vertices: torch.Tensor):
     the CSR's edge arrays."""
     starts = offsets[vertices].to(torch.int64)
     degs = offsets[vertices + 1].to(torch.int64) - starts
-    total = int(degs.sum())
+    with span("cgt/sync.bfs.out_edge_total"):
+        total = int(degs.sum())
     owner = torch.repeat_interleave(
         torch.arange(vertices.numel(), device=vertices.device), degs, output_size=total
     )
@@ -84,19 +89,28 @@ def _sparse_bfs_level(
     Returns (touched (V,) bool, pred_candidate (V,) int32): the smallest
     frontier in-neighbour where touched, INT32_MAX elsewhere."""
     v = visited.numel()
-    fids = frontier.nonzero().squeeze(1)
+    with span("cgt/sync.bfs.frontier_ids"):
+        fids = frontier.nonzero().squeeze(1)
     owner, epos = _out_edges(offsets, fids)
     src = fids[owner]
     nbr = minors[epos].to(torch.int64)
     keep = ~visited[nbr]
-    nbr, src = nbr[keep], src[keep]
+    with span("cgt/sync.bfs.unvisited"):
+        nbr, src = nbr[keep], src[keep]
     touched = torch.zeros(v, dtype=torch.bool, device=fids.device)
-    touched[nbr] = True
+    with span("cgt/sync.bfs.touched"):  # the True is copied from the host: a wait
+        touched[nbr] = True
     pred_cand = torch.full((v,), INT32_MAX, dtype=VERTEX_DTYPE, device=fids.device)
     pred_cand.scatter_reduce_(0, nbr, src.to(VERTEX_DTYPE), "amin")
     return touched, pred_cand
 
 
+def _any(frontier: torch.Tensor) -> bool:
+    with span("cgt/sync.bfs.frontier_any"):
+        return bool(frontier.any())
+
+
+@spanned("cgt/algorithms.bfs")
 def bfs(
     g: Graph,
     sources,
@@ -128,24 +142,32 @@ def bfs(
     dist = torch.where(frontier, 0, INVALID_DISTANCE).to(VERTEX_DTYPE)
     pred = torch.full((v,), INVALID_VERTEX, dtype=VERTEX_DTYPE, device=dev)
     depth = 0
-    while depth < limit and bool(frontier.any()):
+    while depth < limit and _any(frontier):
         sparse = not dense_ok
         if use_sparse and dense_ok:
-            f_edges = int(torch.where(frontier, csr.degrees(), 0).sum())
-            sparse = f_edges <= cap_e and int(frontier.sum()) <= cap_v
-        if sparse:
-            touched, pred_cand = _sparse_bfs_level(csr.offsets, csr.minors, frontier, visited)
-            new = touched & ~visited
-        else:
-            x = torch.where(frontier, ids, float("inf"))
-            y = spmv_minplus(csc, x, use_weights=False)
-            new = torch.isfinite(y) & ~visited
-            pred_cand = torch.where(new, y, 0.0).to(VERTEX_DTYPE)
-        dist = torch.where(new, depth + 1, dist)
-        pred = torch.where(new, pred_cand, pred)
-        visited |= new
-        frontier = new
-        depth += 1
+            f_edges = torch.where(frontier, csr.degrees(), 0).sum()
+            with span("cgt/sync.bfs.frontier_edges"):
+                sparse = int(f_edges) <= cap_e
+            if sparse:
+                f_size = frontier.sum()
+                with span("cgt/sync.bfs.frontier_size"):
+                    sparse = int(f_size) <= cap_v
+        with span("cgt/step.bfs.sparse" if sparse else "cgt/step.bfs.dense"):
+            if sparse:
+                touched, pred_cand = _sparse_bfs_level(
+                    csr.offsets, csr.minors, frontier, visited
+                )
+                new = touched & ~visited
+            else:
+                x = torch.where(frontier, ids, float("inf"))
+                y = spmv_minplus(csc, x, use_weights=False)
+                new = torch.isfinite(y) & ~visited
+                pred_cand = torch.where(new, y, 0.0).to(VERTEX_DTYPE)
+            dist = torch.where(new, depth + 1, dist)
+            pred = torch.where(new, pred_cand, pred)
+            visited |= new
+            frontier = new
+            depth += 1
     return dist, pred
 
 

@@ -8,6 +8,8 @@ stay, keep their input order, and their weights follow.
 The JAX package pads edge arrays to 128 lanes for XLA's static shapes; the
 port keeps exact lengths, so every edge array has ``num_edges`` entries.
 A symmetric graph shares one adjacency as its CSR and its CSC.
+``from_edgelist`` keeps its phases (validate, symmetrize, compress) as
+set-up spans (``utils/timer.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..utils.device import DeviceLike, as_tensor, resolve_device
 from ..utils import validation
 from ..utils.dtypes import EDGE_DTYPE, VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects
+from ..utils.timer import span
 from .symmetrize import symmetrize_edgelist
 
 
@@ -164,30 +167,33 @@ def from_edgelist(
     if weight is not None:
         weight = as_tensor(weight, WEIGHT_DTYPE, dev)
         expects(weight.shape == src.shape, "weight length mismatch")
-    if src.numel():
-        lo = int(torch.minimum(src.min(), dst.min()).item())
-        hi = int(torch.maximum(src.max(), dst.max()).item())
-    else:
-        lo, hi = 0, -1
-    if num_vertices is None:
-        num_vertices = hi + 1
-    expects(lo >= 0 and hi < num_vertices, "vertex id out of range [0, num_vertices)")
-    # the rest of check_edgelist, the weights' O(E) test, behind the
-    # expensive-check flag as in the JAX package (the reference's
-    # do_expensive_check); the range check above runs always
-    if weight is not None and validation.expensive_checks_enabled():
-        expects(bool(torch.isfinite(weight).all()), "non-finite edge weight")
+    with span("cgt/ingest.validate", setup=True, device=dev):
+        if src.numel():
+            lo = int(torch.minimum(src.min(), dst.min()).item())
+            hi = int(torch.maximum(src.max(), dst.max()).item())
+        else:
+            lo, hi = 0, -1
+        if num_vertices is None:
+            num_vertices = hi + 1
+        expects(lo >= 0 and hi < num_vertices, "vertex id out of range [0, num_vertices)")
+        # the rest of check_edgelist, the weights' O(E) test, behind the
+        # expensive-check flag as in the JAX package (the reference's
+        # do_expensive_check); the range check above runs always
+        if weight is not None and validation.expensive_checks_enabled():
+            expects(bool(torch.isfinite(weight).all()), "non-finite edge weight")
     if symmetrize:
-        src, dst, weight = symmetrize_edgelist(src, dst, weight, multi=multi, device=dev)
+        with span("cgt/ingest.symmetrize", setup=True, device=dev):
+            src, dst, weight = symmetrize_edgelist(src, dst, weight, multi=multi, device=dev)
     sym = bool(symmetrize or is_symmetric)
     out_adj = in_adj = None
-    if store in ("both", "out"):
-        out_adj = _build_adj(src, dst, weight, num_vertices, num_vertices)
-    if store in ("both", "in"):
-        if sym and out_adj is not None:
-            in_adj = out_adj
-        else:
-            in_adj = _build_adj(dst, src, weight, num_vertices, num_vertices)
+    with span("cgt/ingest.compress", setup=True, device=dev):
+        if store in ("both", "out"):
+            out_adj = _build_adj(src, dst, weight, num_vertices, num_vertices)
+        if store in ("both", "in"):
+            if sym and out_adj is not None:
+                in_adj = out_adj
+            else:
+                in_adj = _build_adj(dst, src, weight, num_vertices, num_vertices)
     return Graph(
         out_adj=out_adj,
         in_adj=in_adj,

@@ -12,7 +12,8 @@ of its own.
 ``chunk_src`` may repeat a chunk; ``chunk_dst`` is unique. Output rows that
 no chunk writes are zero (the Pallas kernel leaves them undefined). A CUDA
 tensor launches the kernel (and counts the launch in
-``assemble_chunks.launches``); a CPU tensor takes the plain version. A
+``assemble_chunks.launches``); a CPU tensor takes the plain version,
+either way in a ``cgt/kernel.assemble_chunks`` span (``utils/timer.py``). A
 chunk id outside its array raises ValueError on either device: the plain
 version checks the ids first; on the card the index kernel raises a flag
 in pinned host memory, which the C call reads once that kernel is done,
@@ -26,6 +27,7 @@ import threading
 
 import torch
 
+from ...utils.timer import spanned
 from . import build
 from ._launch import on_device, raise_on_error, stream_of
 
@@ -96,6 +98,7 @@ def _ids(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
 
 
+@spanned("cgt/kernel.assemble_chunks")
 def assemble_chunks(
     binned: torch.Tensor,
     chunk_src: torch.Tensor,

@@ -5,7 +5,10 @@ for ``sm_90a`` into ``build/cugraph_tpu_torch/lib<name>-<hash>.so`` at the
 root of the checkout, keyed by a hash of the source and the flags, and
 loaded with ``ctypes``. ``build()`` starts one ``nvcc`` per missing library,
 all at once, and waits for them. Nothing is built when a module is
-imported: the first launch builds what it needs.
+imported: the first launch builds what it needs. A first load is a
+``cgt/setup.kernel_load.<name>`` set-up span, and each nvcc run a
+``cgt/setup.nvcc.<name>`` one, from the start of the build to its end
+(``utils/timer.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ...utils.timer import record_setup_span, span
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
@@ -115,6 +120,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
     failed = []
     for name, out, tmp, proc in procs:
         report, _ = proc.communicate()
+        record_setup_span(f"cgt/setup.nvcc.{name}", t0, time.perf_counter())
         out.with_suffix(".log").write_text(report)
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{report}")
@@ -130,12 +136,13 @@ def load(name: str) -> ctypes.CDLL:
     with argtypes and restype set on each of its functions."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn_name, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = _INT
+        with span(f"cgt/setup.kernel_load.{name}", setup=True):
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = _INT
         _loaded[name] = lib
     return lib
 

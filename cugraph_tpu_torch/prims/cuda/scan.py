@@ -6,13 +6,15 @@ Counterpart of ``cugraph_tpu/prims/pallas/scan.py`` (``cumsum_flat`` 59,
 calls either; they are entry points of their own. A CUDA tensor launches
 the kernel (and counts the launch in ``cumsum_flat.launches``); a CPU
 tensor takes the plain version. There is no fallback from one to the
-other.
+other. Either way the call is a ``cgt/kernel.cumsum_flat`` span
+(``utils/timer.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...utils.timer import spanned
 from . import build
 from ._launch import on_device, raise_on_error, stream_of
 
@@ -32,6 +34,7 @@ def cumsum_flat_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(_flat_f32(x), 0)
 
 
+@spanned("cgt/kernel.cumsum_flat")
 def cumsum_flat(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of a flat array cast to f32, any length (0
     included). One pass: f32 sums in a fixed tree within 4096-element

@@ -8,7 +8,8 @@ precision "f32" is IEEE f32 throughout; "bf16" rounds w and X to bf16 (round
 to nearest even) and accumulates the products in f32, the contract of the
 JAX package's ``row_spmm`` (cugraph_tpu/prims/pallas/spmm_row.py:249-254).
 A CUDA tensor launches the kernel (and counts the launch in ``launches``);
-a CPU tensor takes the plain version.
+a CPU tensor takes the plain version. Either way the call is a
+``cgt/kernel.spmm_rows`` span (``utils/timer.py``).
 
 The kernel cuts the adjacency into merge-path tiles, one warp each
 (``_partition.py``); the plan is computed on the card at the first call
@@ -30,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ...core.csr import CompressedAdj
+from ...utils.timer import spanned
 from . import build
 from ._launch import check_operands, on_device, ptr, raise_on_error, stream_of
 from ._partition import tiles_for
@@ -118,6 +120,7 @@ def spmm_rows_reference(
     return y
 
 
+@spanned("cgt/kernel.spmm_rows")
 def spmm_rows(
     adj: CompressedAdj,
     x: torch.Tensor,

@@ -9,6 +9,7 @@ the roles of s and d swap; w is the edge weight when
 ``use_weights`` and the graph is weighted, else 1 (sum) or 0 (min). A CUDA
 tensor launches the kernel (and counts the launch in ``launches``); a CPU
 tensor takes the plain version. There is no fallback from one to the other.
+Either way the call is a ``cgt/kernel.<name>`` span (``utils/timer.py``).
 
 Both cut the adjacency into merge-path tiles of
 ``SUM_THREADS * SUM_ITEMS_PER_THREAD`` rows and edges, one block each
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 
 from ...core.csr import CompressedAdj
+from ...utils.timer import spanned
 from . import build
 from ._launch import check_operands, on_device, ptr, raise_on_error, stream_of
 from ._partition import tiles_for
@@ -82,6 +84,7 @@ def _launch(kernel: str, adj: CompressedAdj, x: torch.Tensor, use_weights: bool)
     return y
 
 
+@spanned("cgt/kernel.spmv_sum")
 def spmv_sum(
     adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True
 ) -> torch.Tensor:
@@ -95,6 +98,7 @@ def spmv_sum(
     return y
 
 
+@spanned("cgt/kernel.spmv_minplus")
 def spmv_minplus(
     adj: CompressedAdj, x: torch.Tensor, *, use_weights: bool = True
 ) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Aux subsystems of cugraph_tpu_torch against cugraph_tpu on the CPU:
-the timer, the expensive checks and their wiring into ingest, and
+the expensive checks and their wiring into ingest, and
 serialization (round trip, file, garbage), mirroring tests/test_aux.py;
 besides, blobs cross between the packages both ways and give the same
 graph (equal CSR and CSC arrays), ``broadcast_graph`` gives each of two
@@ -29,25 +29,9 @@ from cugraph_tpu_torch.core.serialize import (
 from cugraph_tpu_torch.testing import karate_edgelist
 from cugraph_tpu_torch.utils import validation
 from cugraph_tpu_torch.utils.error import GraphError
-from cugraph_tpu_torch.utils.timer import HighResTimer, profiler_trace
+from cugraph_tpu_torch.utils.timer import profiler_trace
 
 CPU = "cpu"
-
-
-def test_timer():
-    t = HighResTimer()
-    t.start("phase1")
-    _ = sum(range(1000))
-    dt = t.stop("phase1")
-    assert dt >= 0
-    with t.range("phase2") as holder:
-        holder["sync"] = {"x": torch.ones(3), "y": (torch.zeros(2), [torch.ones(1)])}
-    t.start("phase1")
-    t.stop("phase1", sync=torch.ones(2))  # a CPU tensor needs no device wait
-    out = t.display()
-    assert "phase1" in out and "phase2" in out and "(2 calls)" in out
-    t.reset()
-    assert t.display() == ""
 
 
 def test_profiler_trace_writes_chrome_trace(tmp_path):
