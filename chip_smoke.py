@@ -14,7 +14,11 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    tile sizes; spmm_rows in its wide layout at F = 128, 101 (one float a
    load) and 200 (a partial second column pass), in its narrow layout's
    F, with x 4 bytes off alignment, and on graphs whose rows close a step
-   of the narrow layout's lane groups) and
+   of the narrow layout's lane groups); the column-segmented SpMV at
+   forced widths (K = 2, 3 with an uneven last range, 4, and a range with
+   no edge) on the small and adversarial graphs, spmv_sum within
+   TOL_SUM_REL and spmv_minplus bit-exact, one launch and K segment passes
+   a call; and
    at the main path's shapes: spmv_sum, spmv_minplus, spmm_rows (both
    modes, F = 128, 129 (the wide layout's scalar loads) and 40, and the
    narrow layout at F = 8, 16, 32, 10 in f32 and 8 in bf16), each kernel
@@ -182,7 +186,9 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    trainer's loss must fall.
 
 The line before the last is one JSON object with a "kernels" list (each
-kernel's launches_by_path names only the paths that count it); the last
+kernel's launches_by_path names only the paths that count it; the SpMVs'
+"segments": K on the main path's graph, its launches and segment
+passes); the last
 line is {"ok": true, "device": {...}}. Without CUDA the script exits
 non-zero and prints no result.
 """
@@ -688,6 +694,98 @@ def small_graph_checks(seed: int) -> None:
         f"(f32, bf16) ok, each bit-equal on a second launch")
 
 
+def segment_counts(adj, kernels) -> dict:
+    """K, the column segments the rule gives ``adj`` on this card, and
+    each SpMV's launches and segment passes since its counters were set
+    to 0; every call must have swept K ranges."""
+    from cugraph_tpu_torch.prims.cuda import spmv
+
+    k = -(-adj.num_minors // spmv.segment_width(adj, DEV))
+    out = {"k": k}
+    for name, fn in kernels.items():
+        require(fn.segment_passes == k * fn.launches,
+                f"{name}: {fn.segment_passes} segment passes over {fn.launches} calls at K = {k}")
+        out[name] = {"launches": fn.launches, "segment_passes": fn.segment_passes}
+    return out
+
+
+@contextlib.contextmanager
+def forced_segments(width: int):
+    """Every SpMV in the block sweeps column segments of ``width`` minors,
+    whatever the rule (``spmv.segment_width``) would give."""
+    from cugraph_tpu_torch.prims.cuda import spmv
+
+    with tile_constant(spmv, "segment_width", lambda adj, device: width):
+        yield
+
+
+def gapped_graph(seed: int, v: int = 5000, e: int = 60000, gap=(2000, 2500)):
+    """skewed_graph's sources moved out of the range ``gap``, so that a
+    column segment can hold no edge; weighted."""
+    import cugraph_tpu_torch as ct
+
+    gen = torch.Generator().manual_seed(seed)
+    src = (torch.rand(e, generator=gen) ** 4 * (v - gap[1] + gap[0])).long()
+    src = torch.where(src >= gap[0], src + gap[1] - gap[0], src)
+    dst = (torch.rand(e, generator=gen) ** 3 * (v - 100)).long()
+    w = torch.randn(e, generator=gen)
+    return ct.from_edgelist(src, dst, w, num_vertices=v, device=DEV)
+
+
+def segment_checks(seed: int) -> None:
+    """The column-segmented sweep at forced widths: K = 2, 3 (an uneven
+    last range) and 4 on the small skewed graphs and the adversarial
+    graphs (at the default tiles and at 1 item a thread), and ranges of
+    500 on a graph whose sources skip [2000, 2500) (a range with no edge):
+    spmv_sum within TOL_SUM_REL of float64, spmv_minplus bit-exact
+    (weighted, unweighted, BFS-shaped x), each relaunch bit-equal, one
+    launch and K segment passes a call; K = 1 the unsegmented sweep."""
+    from cugraph_tpu_torch.prims.cuda import _partition, spmv, spmv_minplus, spmv_sum
+
+    gen = torch.Generator().manual_seed(seed)
+    tiles = (spmv.SUM_THREADS * spmv.SUM_ITEMS_PER_THREAD, spmv.SUM_THREADS)
+    graphs = [("skewed", skewed_graph(seed + 20, weighted=True), (spmv.SUM_ITEMS_PER_THREAD,)),
+              ("skewed unweighted", skewed_graph(seed + 21, weighted=False),
+               (spmv.SUM_ITEMS_PER_THREAD,)),
+              ("adversarial", adversarial_graph(seed + 22, True, tiles),
+               (spmv.SUM_ITEMS_PER_THREAD, 1)),
+              ("adversarial unweighted", adversarial_graph(seed + 23, False, tiles),
+               (spmv.SUM_ITEMS_PER_THREAD, 1)),
+              ("gapped", gapped_graph(seed + 24), (spmv.SUM_ITEMS_PER_THREAD,))]
+    out = {}
+    for name, g, ipts in graphs:
+        adj = g.csc()
+        v = adj.num_minors
+        x = torch.randn(v, generator=gen).to(DEV)
+        ids = torch.arange(v, dtype=torch.float32, device=DEV)
+        xb = torch.where(torch.rand(v, generator=gen).to(DEV) < 0.05, ids, float("inf"))
+        widths = [v] + [-(-v // k) for k in (2, 3, 4)] + ([500] if name == "gapped" else [])
+        done = []
+        for width in widths:
+            segs = _partition.segments_for(adj, width) if width < v else []
+            k = max(len(segs), 1)
+            if name == "gapped" and width == 500:
+                require(segs[4].num_edges == 0, "the gapped graph's range [2000, 2500) is empty")
+            for ipt in ipts:
+                calls = (spmv_sum.launches, spmv_minplus.launches)
+                passes = (spmv_sum.segment_passes, spmv_minplus.segment_passes)
+                with forced_segments(width), tile_constant(spmv, "SUM_ITEMS_PER_THREAD", ipt):
+                    check_spmv_sum(adj, x)
+                    check_spmv_minplus(adj, x)
+                    check_spmv_minplus(adj, x, use_weights=False)
+                    check_spmv_minplus(adj, xb, use_weights=False)
+                require([spmv_sum.launches - calls[0], spmv_minplus.launches - calls[1]] == [2, 6],
+                        f"{name}: one launch a call")
+                require([spmv_sum.segment_passes - passes[0],
+                         spmv_minplus.segment_passes - passes[1]] == [2 * k, 6 * k],
+                        f"{name}: {k} segment passes a call at width {width}")
+            done.append([width, k, [s.num_edges for s in segs]])
+        out[name] = done
+    log(f"column segments ([width, K, edges a range] by graph): {json.dumps(out)}; spmv_sum "
+        f"within {TOL_SUM_REL}, spmv_minplus bit-exact (weighted, unweighted, BFS x), each "
+        f"bit-equal on a second launch")
+
+
 def step_boundary_graph(seed: int, groups: int, k: int, rows: int = 6000):
     """A CSC whose rows are built one by one so that every fourth row's
     last edge closes a step of ``groups`` edges of the k-item tile that
@@ -751,7 +849,7 @@ def wrapper_host_split(adj, x, reps: int = 2000) -> dict:
 
     def arguments():
         return (ptr(adj.offsets), ptr(adj.minors), None, ptr(x), ptr(tile_row), ptr(tile_edge),
-                buf.data_ptr() + 4 * v, buf.data_ptr(), n_tiles, spmv.SUM_ITEMS_PER_THREAD,
+                buf.data_ptr() + 4 * v, buf.data_ptr(), n_tiles, spmv.SUM_ITEMS_PER_THREAD, 0,
                 stream_of(x.device))
 
     args = arguments()
@@ -1040,6 +1138,7 @@ def main_path(scale: int, seed: int) -> dict:
     seconds = {}
     for k in counters.values():
         k.launches = 0
+    spmv_sum.segment_passes = spmv_minplus.segment_passes = 0
 
     t = time.perf_counter()
     g = rmat_graph(scale, seed)
@@ -1068,8 +1167,9 @@ def main_path(scale: int, seed: int) -> dict:
     (pr, iters), (dist, pred), emb = results.values()
 
     launches = {name: k.launches for name, k in counters.items()}
+    segments = segment_counts(g.csc(), {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus})
     log(f"main path seconds: {json.dumps(seconds)}")
-    log(f"main path launches: {json.dumps(launches)}")
+    log(f"main path launches: {json.dumps(launches)}; column segments {json.dumps(segments)}")
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the main path")
 
@@ -1097,7 +1197,7 @@ def main_path(scale: int, seed: int) -> dict:
         sage_err = (emb - reference_graphsage(model, g, feats)).abs().max().item()
     require(sage_err <= TOL_SAGE_ABS, f"graphsage max abs error {sage_err}")
     log(f"graphsage: max abs error {sage_err:.3e} vs the layers applied by hand")
-    return dict(seconds=seconds, launches=launches, pagerank_iterations=iters,
+    return dict(seconds=seconds, launches=launches, segments=segments, pagerank_iterations=iters,
                 pagerank_rel_err=pr_err, pagerank_max_abs_err=pr_abs, bfs_levels=levels, bfs_reached=reached,
                 graphsage_err=sage_err, warm=warm_breakdown(phases),
                 gradient=gradient_path(g, feats, seed))
@@ -4268,6 +4368,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     t = time.perf_counter()
     small_graph_checks(args.seed)
+    segment_checks(args.seed)
     g = rmat_graph(args.scale, args.seed)
     kernels = full_shape_kernels(g, args.seed)
     del g
@@ -4381,6 +4482,8 @@ def main() -> int:
             extra["mg_block"] = mgp["block"][name]
         if name == "spmm_rows":
             extra["out_block"] = tpath["mg"]["out_block"]
+        if name in path["segments"]:
+            extra["segments"] = dict(k=path["segments"]["k"], **path["segments"][name])
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             also_replaces=ALSO_REPLACES[name], launches=launches,

@@ -43,6 +43,11 @@ class CompressedAdj:
     tile_plans: dict = dataclasses.field(
         default_factory=dict, init=False, compare=False, repr=False
     )
+    # the SpMVs' column segments, by range width, built at first use
+    # (prims/cuda/_partition.py); like tile_plans
+    segments: dict = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False
+    )
 
     def degrees(self) -> torch.Tensor:
         return self.offsets[1:] - self.offsets[:-1]

@@ -18,15 +18,30 @@
 //   spmv_minplus: y[d] = min over edges s->d of x[s] + w   (w = 0 if unweighted;
 //                 +inf where d has no in-edge)
 //
-// Bound on an H100 SXM: memory. Per launch the kernel must read offsets
+// Bound on an H100 SXM: memory. Per sweep the kernel must read offsets
 // (V+1)*4 B, minors E*4 B, x (4 B per source row that has an out-edge) and
 // weights E*4 B if any, and write y V*4 B: about 159 MB at RMAT scale 21
 // (V = 2^21, E = 2^25, unweighted), or ~48 us at 3.35 TB/s. The arithmetic
 // (E adds or mins) is negligible against 67 TFLOP/s. What both kernels
-// wait on is the E gathers of x: 8 MB of x stays in the L2, but each
-// 4-byte gather costs a 32-byte sector from it (1.07 GB at scale 21)
-// wherever the SM's L1 misses, and at that rate it runs as fast as
-// cuSPARSE's CSR SpMV, ~5x the DRAM bound.
+// wait on is the E gathers of x, each a 32-byte sector wherever the SM's
+// L1 misses. At scale 21 x is 8 MB and stays in the 50 MB L2: ~145 G
+// edges/s. At scale 24 x is 64 MB and spills it, and on a graph without
+// skew (GAP's Urand) nearly every gather goes to HBM: 48 G edges/s, 11.2
+// ms a sweep of 537M edges.
+//
+// Column segments (Zhang et al., IEEE BigData 2017; prims/cuda/_partition.py)
+// bring the gathers back to the L2: where x outgrows 43% of the L2, the
+// wrapper keeps the CSC also cut by its minors into K ranges, each with its
+// own offsets and plan, and launches the tiles and the fix-up once a range,
+// in range order. The first range writes y; each later one combines every
+// row into it (accumulate: y[r] = combine(y[r], range's value)), so a row
+// empty in a range combines the identity. A range gathers from its slice
+// of x alone (21 MB at scale 24, K = 3), and offsets, minors and weights
+// load with __ldcs (evict first) so that their stream does not push the
+// slice out. The price is K passes over the rows (offsets read, y read and
+// written, V row items each): on Urand 4.65 ms a sweep at K = 3 (115 G
+// edges/s), where K = 2's 32 MB slices spill (6.10 ms) and K = 4 pays more
+// in rows than it gains in hits (4.96 ms).
 //
 // Design: edge-balanced tiles (merge path, Merrill & Garland, SC'16;
 // prims/cuda/_partition.py), one kernel body for both functions, templated
@@ -38,13 +53,12 @@
 // and no block waits on a long row. The block first stages its tile in
 // shared memory with coalesced loads: the end of each row that ends in the
 // tile, and the edge value (w * x[s] or x[s] + w) of each edge (every
-// gather of the tile in flight at once; x is 8 MB at scale 21 and stays in
-// the 50 MB L2). Each thread then finds its own start on the merge path by
-// a binary search in shared memory and walks its run of items in order,
-// writing the rows that begin and end in its run to y. The partial row a
-// thread leaves goes into a segmented scan across the block's threads
-// (fixed order, in shared memory), whose results complete the row that a
-// later thread of the block ends. The row the tile enters partway goes to
+// gather of the tile in flight at once). Each thread then finds its own
+// start on the merge path by a binary search in shared memory and walks its
+// run of items in order, writing the rows that begin and end in its run to
+// y. The partial row a thread leaves goes into a segmented scan across the
+// block's threads (fixed order, in shared memory), whose results complete
+// the row that a later thread of the block ends. The row the tile enters partway goes to
 // carry slot 0 of the tile and the row it leaves partway to slot 1 of a
 // (tiles, 2) f32 buffer; a fix-up kernel combines each cut row's carries in
 // tile order and writes it. A row with no edges ends with the identity, so
@@ -77,6 +91,14 @@ struct MinPlusOp {
   static __device__ __forceinline__ float edge(float xs) { return xs + 0.0f; }
 };
 
+// Write row i of y, or, for a later column segment, combine it into the
+// earlier segments' value. Every row is written once a launch, so the read
+// and the write race with nothing.
+template <class Op>
+__device__ __forceinline__ void put(float* y, size_t i, float v, bool accumulate) {
+  y[i] = accumulate ? Op::combine(y[i], v) : v;
+}
+
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -90,7 +112,8 @@ __global__ void __launch_bounds__(kThreads)
 spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minors,
                   const float* __restrict__ weights, const float* __restrict__ x,
                   const int* __restrict__ tile_row, const int* __restrict__ tile_edge,
-                  float* __restrict__ y, float* __restrict__ carry, int items_per_thread) {
+                  float* __restrict__ y, float* __restrict__ carry, int items_per_thread,
+                  bool accumulate) {
   extern __shared__ int smem[];
   __shared__ int run_row[kThreads];
   __shared__ float run_sum[kThreads];  // combined value of a warp's last run
@@ -104,14 +127,16 @@ spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minor
   const int nr = r1 - r0, ne = e1 - e0;
   // row r0 began in an earlier tile (r0 < V for every tile)
   const bool head = __ldg(offsets + r0) < e0;
-  for (int i = tid; i < nr; i += kThreads) row_end[i] = __ldg(offsets + r0 + i + 1) - e0;
+  // offsets, minors and weights stream past once (__ldcs: evict first), so
+  // that they do not push the gathered x out of the L2
+  for (int i = tid; i < nr; i += kThreads) row_end[i] = __ldcs(offsets + r0 + i + 1) - e0;
   if (weights != nullptr) {
 #pragma unroll 4
     for (int i = tid; i < ne; i += kThreads)
-      val[i] = Op::edge(__ldg(x + __ldg(minors + e0 + i)), __ldg(weights + e0 + i));
+      val[i] = Op::edge(__ldg(x + __ldcs(minors + e0 + i)), __ldcs(weights + e0 + i));
   } else {
 #pragma unroll 4
-    for (int i = tid; i < ne; i += kThreads) val[i] = Op::edge(__ldg(x + __ldg(minors + e0 + i)));
+    for (int i = tid; i < ne; i += kThreads) val[i] = Op::edge(__ldg(x + __ldcs(minors + e0 + i)));
   }
   __syncthreads();
 
@@ -135,7 +160,7 @@ spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minor
         first_row = r;
         first_acc = acc;
       } else {
-        y[r0 + r] = acc;
+        put<Op>(y, r0 + r, acc, accumulate);
       }
       acc = Op::identity();
       ++r;
@@ -188,7 +213,7 @@ spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minor
       sum = Op::combine(prev, first_acc);
     }
     if (first_row == 0 && head) carry[2 * static_cast<size_t>(tile)] = sum;
-    else y[r0 + first_row] = sum;
+    else put<Op>(y, r0 + first_row, sum, accumulate);
   }
   if (tid == kThreads - 1) {
     // the last thread's run is row r1 (local nr); its value, if the tile
@@ -207,7 +232,8 @@ template <class Op>
 __global__ void __launch_bounds__(kThreads)
 spmv_fixup_kernel(const int* __restrict__ offsets, const int* __restrict__ tile_row,
                   const int* __restrict__ tile_edge, const float* __restrict__ carry,
-                  float* __restrict__ y, int num_tiles, long long items_per_tile) {
+                  float* __restrict__ y, int num_tiles, long long items_per_tile,
+                  bool accumulate) {
   const int t = blockIdx.x * kThreads + threadIdx.x + 1;
   if (t >= num_tiles) return;
   const int r = __ldg(tile_row + t);
@@ -219,7 +245,7 @@ spmv_fixup_kernel(const int* __restrict__ offsets, const int* __restrict__ tile_
   float acc = __ldg(carry + 2 * static_cast<size_t>(t - 1) + 1);
 #pragma unroll 4
   for (long long tt = t; tt <= last; ++tt) acc = Op::combine(acc, __ldg(carry + 2 * tt));
-  y[r] = acc;
+  put<Op>(y, r, acc, accumulate);
 }
 
 // Both launches on the caller's stream: the tiles, then (with more than one
@@ -227,7 +253,7 @@ spmv_fixup_kernel(const int* __restrict__ offsets, const int* __restrict__ tile_
 template <class Op>
 int launch(const int* offsets, const int* minors, const float* weights, const float* x,
            const int* tile_row, const int* tile_edge, float* carry, float* y, int num_tiles,
-           int items_per_thread, void* stream) {
+           int items_per_thread, bool accumulate, void* stream) {
   if (num_tiles > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int tile_items = kThreads * items_per_thread;
@@ -239,11 +265,11 @@ int launch(const int* offsets, const int* minors, const float* weights, const fl
       if (rc != cudaSuccess) return static_cast<int>(rc);
     }
     spmv_tiles_kernel<Op><<<num_tiles, kThreads, smem, s>>>(
-        offsets, minors, weights, x, tile_row, tile_edge, y, carry, items_per_thread);
+        offsets, minors, weights, x, tile_row, tile_edge, y, carry, items_per_thread, accumulate);
     if (num_tiles > 1) {
       const unsigned blocks = (num_tiles - 1 + kThreads - 1) / kThreads;
       spmv_fixup_kernel<Op><<<blocks, kThreads, 0, s>>>(offsets, tile_row, tile_edge, carry, y,
-                                                         num_tiles, tile_items);
+                                                         num_tiles, tile_items, accumulate);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -255,19 +281,20 @@ int launch(const int* offsets, const int* minors, const float* weights, const fl
 // launches go on the caller's stream and do not synchronise; the return
 // value is cudaGetLastError() after them. tile_row / tile_edge (num_tiles +
 // 1 int32 each) are the merge-path plan for 256 * items_per_thread items a
-// tile; carry is (num_tiles, 2) f32 scratch.
+// tile; carry is (num_tiles, 2) f32 scratch. accumulate != 0 combines each
+// row into y (a later column segment) where 0 writes it.
 extern "C" int cgt_spmv_sum(const int* offsets, const int* minors, const float* weights,
                             const float* x, const int* tile_row, const int* tile_edge,
                             float* carry, float* y, int num_tiles, int items_per_thread,
-                            void* stream) {
+                            int accumulate, void* stream) {
   return launch<SumOp>(offsets, minors, weights, x, tile_row, tile_edge, carry, y, num_tiles,
-                       items_per_thread, stream);
+                       items_per_thread, accumulate != 0, stream);
 }
 
 extern "C" int cgt_spmv_minplus(const int* offsets, const int* minors, const float* weights,
                                 const float* x, const int* tile_row, const int* tile_edge,
                                 float* carry, float* y, int num_tiles, int items_per_thread,
-                                void* stream) {
+                                int accumulate, void* stream) {
   return launch<MinPlusOp>(offsets, minors, weights, x, tile_row, tile_edge, carry, y,
-                           num_tiles, items_per_thread, stream);
+                           num_tiles, items_per_thread, accumulate != 0, stream);
 }

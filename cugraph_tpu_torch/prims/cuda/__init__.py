@@ -3,7 +3,8 @@
 - spmv: ``spmv_sum`` and ``spmv_minplus`` over a CSC or CSR (csrc/spmv.cu).
 - spmm_row: ``spmm_rows`` over a CSC, f32 or bf16 operands (csrc/spmm_row.cu),
   and ``SpmmRowsFunction``, its autograd form (backward over the CSR).
-- _partition: the merge-path tile plans of ``spmv_sum`` and ``spmm_rows``.
+- _partition: the merge-path tile plans of ``spmv_sum`` and ``spmm_rows``,
+  and the SpMVs' column segments.
 - scan: ``cumsum_flat``, the f32 prefix sum (csrc/scan.cu), and
   ``segment_sums_from_cumsum``.
 - assemble: ``assemble_chunks``, the chunk-granular row copy

@@ -13,9 +13,12 @@ row goes straight to the output, which to carry slot 0 or 1, which tile
 boundary combines a cut row's carries in tile order), for the sum and for
 the min with its +inf identity, reproduces the float64 row sums and row
 minima and writes every row exactly once; a row with no edges comes out
-as the identity. A numpy model of spmm_rows' narrow layout (its lane
-groups, steps, open row and segmented scan, in the kernel's order, fed to
-the same fix-up) writes every row once and matches the plain version.
+as the identity; run once a column segment and combined in range order
+(the kernels' accumulate mode) it reproduces the unsegmented row reduce,
+every row written once a range. A numpy model of spmm_rows' narrow
+layout (its lane groups, steps, open row and segmented scan, in the
+kernel's order, fed to the same fix-up) writes every row once and matches
+the plain version.
 """
 
 import numpy as np
@@ -213,6 +216,36 @@ def test_min_rows_without_edges_are_inf(k):
     assert empty[[0, 8, 10, 150, len(deg) - 1]].all()
     assert np.isposinf(y[empty]).all() and np.isfinite(y[~empty]).all()
     np.testing.assert_array_equal(y, _row_reduce(offsets, vals, "min"))
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
+@pytest.mark.parametrize("seed,k,width", [(10, 64, 100), (11, 7, 130), (12, 1792, 57)])
+def test_segments_accumulate_every_row_once_a_range(seed, k, width, op):
+    """csrc/spmv.cu's accumulate mode: the tiles and fix-up run once a
+    column segment (its own offsets and plan), the first range writing y
+    and each later one combining into it; every row is written once a
+    range, and the result is the unsegmented row reduce (the min exactly)."""
+    deg = _adversarial_degrees(seed, hub=700)
+    offsets = _offsets(deg)
+    e, v = int(deg.sum()), len(deg)
+    rng = np.random.default_rng(seed)
+    minors = rng.integers(0, v, e)
+    minors[: deg[:40].sum()] %= 100  # rows whose edges all lie in the first range
+    vals = rng.normal(size=e)
+    ident, combine = OPS[op]
+    y = None
+    majors = np.repeat(np.arange(v), deg)
+    for lo in range(0, v, width):
+        keep = (minors >= lo) & (minors < lo + width)
+        seg_offsets = _offsets(np.bincount(majors[keep], minlength=v))
+        part, writes = _kernel_model(seg_offsets, vals[keep], k, op)
+        assert (writes == 1).all()
+        y = part if y is None else combine(y, part)
+    want = _row_reduce(offsets, vals, op)
+    if op == "min":
+        np.testing.assert_array_equal(y, want)
+    else:
+        np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
 
 
 def test_rows_ending_on_tile_boundaries():
