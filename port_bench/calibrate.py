@@ -36,7 +36,7 @@ def control_readings(cell, seed: int, device) -> dict:
     reference = importlib.import_module(f"port_bench.reference.{traffic['analytic']}")
     v = 1 << int(config["scale"])
     src, dst = gen.edges(config, harness.derive_seed(seed, "edges"), device)
-    args, _ = harness.draw_args(traffic, src, dst, v, seed)
+    args, _ = harness.draw_args(traffic, [(src, dst)], v, seed, device)
     ref = refgraph.build(src, dst, v)
     del src, dst
     args = [args[i % len(args)] for i in range(int(traffic["check_sample"]))]

@@ -7,6 +7,11 @@ call and counts are ``queries/<analytic>.py`` and whose reference and
 comparison are ``reference/<analytic>.py``), and each metric's reader,
 ``metrics/<metric>.py`` or the general reader of its quantity
 (``reader_path``). A cell is added by adding such files and entries.
+
+A cell on one card runs in one process (``run_cell``); a cell across
+cards runs one process a card, each of them ``run_rank``, through the
+port's multi-card layer (``cugraph_tpu_torch.dist``) and the reference
+split over the ranks (``reference/split.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-from . import timing
+from . import spans, timing
 from .reference import graph as refgraph
 
 BENCH_DIR = Path(__file__).resolve().parent
@@ -99,22 +104,25 @@ def metric_reader(bench_dir: Path, name: str, analytic: str):
     return module.read
 
 
-def draw_args(traffic: dict, src, dst, num_vertices: int, seed: int):
+def draw_args(traffic: dict, chunks, num_vertices: int, seed: int, device: torch.device):
     """(args of the window's queries, args of the warm-up queries). With a
     ``roots`` entry: roots drawn uniformly, with repeats, among the
-    vertices with a tuple to another vertex; else every query's arg is
+    vertices with a tuple to another vertex (``chunks``: the (src, dst)
+    tuples, in one piece or in several); else every query's arg is
     None."""
     warm = int(traffic["warmup_queries"])
     spec = traffic.get("roots")
     if spec is None:
         return [None], [None] * warm
-    keep = src != dst
-    deg = torch.bincount(src[keep], minlength=num_vertices)
-    deg += torch.bincount(dst[keep], minlength=num_vertices)
+    deg = torch.zeros(num_vertices, dtype=torch.int64, device=device)
+    for src, dst in chunks:
+        keep = src != dst
+        deg += torch.bincount(src[keep], minlength=num_vertices)
+        deg += torch.bincount(dst[keep], minlength=num_vertices)
     cand = torch.nonzero(deg).squeeze(1)
-    gen = torch.Generator(device=src.device).manual_seed(derive_seed(seed, "roots"))
+    gen = torch.Generator(device=device).manual_seed(derive_seed(seed, "roots"))
     count = int(spec["count"])
-    pick = torch.randint(0, cand.numel(), (count + warm,), generator=gen, device=src.device)
+    pick = torch.randint(0, cand.numel(), (count + warm,), generator=gen, device=device)
     roots = cand[pick].tolist()
     return roots[:count], roots[count:]
 
@@ -134,64 +142,55 @@ def card_lines() -> list:
     return [f"nvidia-smi {query}: {line}" for line in out.splitlines()]
 
 
-def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
-             device: torch.device, t_start: float, log=print) -> dict:
-    """One run of the cell; returns the result line's object. ``t_start``
-    is the process's start on the ``time.perf_counter`` clock."""
-    import cugraph_tpu_torch as port
+def cell_modules(cell: Cell):
+    """(queries, reference, generator) modules of ``cell``."""
+    if cell.traffic["loop"] != {"kind": "closed", "clients": 1}:
+        raise ValueError(f"{cell.name}: only a closed loop with one client is driven")
+    analytic = cell.traffic["analytic"]
+    return (importlib.import_module(f"{__package__}.queries.{analytic}"),
+            importlib.import_module(f"{__package__}.reference.{analytic}"),
+            importlib.import_module(f"{__package__}.gen.{cell.config['generator']}"))
 
-    cell = load_cell(root, workload)
-    config, traffic = cell.config, cell.traffic
-    if traffic["loop"] != {"kind": "closed", "clients": 1}:
-        raise ValueError(f"{workload}: only a closed loop with one client is driven")
-    query = importlib.import_module(f"{__package__}.queries.{traffic['analytic']}")
-    reference = importlib.import_module(f"{__package__}.reference.{traffic['analytic']}")
-    gen = importlib.import_module(f"{__package__}.gen.{config['generator']}")
-    cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    params = traffic["params"]
-    v = 1 << int(config["scale"])
 
-    # ---- set-up: the edges and roots from the seed, ingest, warm-up
-    marks = [("imports", time.perf_counter())]
-    src, dst = gen.edges(config, derive_seed(seed, "edges"), device)
-    args, warm = draw_args(traffic, src, dst, v, seed)
-    sync()
-    t = time.perf_counter()
-    marks.append(("edges and roots", t))
-    g = port.from_edgelist(src, dst, num_vertices=v, symmetrize=bool(config["symmetrize"]),
-                           device=device)
-    sync()
-    ingest_s = time.perf_counter() - t
-    marks.append(("ingest", time.perf_counter()))
-    for a in warm:
-        query.run(port, g, a, params)
-        sync()
-    marks.append(("warm-up", time.perf_counter()))
-    setup_s = marks[-1][1] - t_start
+@dataclasses.dataclass
+class Window:
+    """What the measured window did: queries attempted and failed, each
+    completed query's arg, latency and note, the check's sample of
+    (arg, result), its seconds, and the profiler (with ``--trace 1``)."""
 
-    # ---- the window: a closed loop, one client
-    window = min(seconds, float(traffic["trace_seconds"])) if trace else seconds
-    sample_rng = random.Random(derive_seed(seed, "sample"))
-    k = int(traffic["check_sample"])
+    attempted: int
+    failed: int
+    done: list
+    latencies: list
+    notes: list
+    samples: list
+    window_s: float
+    prof: object
+
+
+def drive(call, ready, args: list, seconds: float, k: int, sample_rng: random.Random,
+          prof, log, go=bool, catch: bool = True) -> Window:
+    """A closed loop with one client for ``seconds``: ``call(arg)`` then
+    ``ready()`` a query, latency from the call to ``ready`` returning. The
+    check's sample is a reservoir of ``k`` queries drawn by
+    ``sample_rng``. ``go(more)`` decides whether the next query runs
+    (across cards, rank 0's ``more`` for every rank), outside the latency.
+    A query that raises ends the window and counts as failed, or, without
+    ``catch``, ends the run."""
     samples, latencies, done, notes = [], [], [], []
     attempted = failed = 0
-    prof = contextlib.nullcontext()
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-        prof = profile(activities=acts)
     with prof:
         t_win = t_end = time.perf_counter()
-        while t_end - t_win < window:
+        while go(t_end - t_win < seconds):
             arg = args[attempted % len(args)]
             attempted += 1
             t = time.perf_counter()
             try:
-                result, note = query.run(port, g, arg, params)
-                sync()
+                result, note = call(arg)
+                ready()
             except Exception:  # a failed query ends the window and the run's correctness
+                if not catch:
+                    raise
                 log(traceback.format_exc())
                 failed += 1
                 break
@@ -207,9 +206,69 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
                 else:
                     samples[slot] = (arg, result)
             del result
-    window_s = t_end - t_win
+    return Window(attempted, failed, done, latencies, notes, samples, t_end - t_win, prof)
+
+
+def profiler(trace: bool, cuda: bool):
+    """A torch.profiler of the host and, on a card, the device; a no-op
+    context untraced."""
+    if not trace:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []))
+
+
+def read_trace(win: Window, log) -> dict:
+    """The record's readings of a traced window: ``profile``
+    (``timing.read_profile``), ``spans`` (the program's spans in it,
+    ``spans.read_spans``) and ``setup_spans`` (the program's set-up spans
+    in this process); the spans are logged as one ``spans:`` line."""
+    out = dict(profile=timing.read_profile(win.prof, win.window_s),
+               spans=spans.read_spans(win.prof), setup_spans=spans.program_setup_spans())
+    log("spans: " + json.dumps(dict(out["spans"], setup_spans=out["setup_spans"])))
+    return out
+
+
+def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
+             device: torch.device, t_start: float, log=print) -> dict:
+    """One run of a cell on one card; returns the result line's object.
+    ``t_start`` is the process's start on the ``time.perf_counter``
+    clock."""
+    import cugraph_tpu_torch as port
+
+    cell = load_cell(root, workload)
+    config, traffic = cell.config, cell.traffic
+    query, reference, gen = cell_modules(cell)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    params = traffic["params"]
+    v = 1 << int(config["scale"])
+
+    # ---- set-up: the edges and roots from the seed, ingest, warm-up
+    marks = [("imports", time.perf_counter())]
+    src, dst = gen.edges(config, derive_seed(seed, "edges"), device)
+    args, warm = draw_args(traffic, [(src, dst)], v, seed, device)
+    sync()
+    t = time.perf_counter()
+    marks.append(("edges and roots", t))
+    g = port.from_edgelist(src, dst, num_vertices=v, symmetrize=bool(config["symmetrize"]),
+                           device=device)
+    sync()
+    ingest_s = time.perf_counter() - t
+    marks.append(("ingest", time.perf_counter()))
+    for a in warm:
+        query.run(port, g, a, params)
+        sync()
+    marks.append(("warm-up", time.perf_counter()))
+
+    # ---- the window: a closed loop, one client
+    window = min(seconds, float(traffic["trace_seconds"])) if trace else seconds
+    win = drive(lambda a: query.run(port, g, a, params), sync, args, window,
+                int(traffic["check_sample"]), random.Random(derive_seed(seed, "sample")),
+                profiler(trace, cuda), log)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    profile_rec = timing.read_profile(prof, window_s) if trace else None
+    traced = read_trace(win, log) if trace else {}
 
     # ---- the check, after the window: the reference from the same edges
     t_check = time.perf_counter()
@@ -220,27 +279,146 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    checks.update(reference.check(ref, samples, notes, params, traffic["limits"]))
+    checks.update(reference.check(ref, win.samples, win.notes, params, traffic["limits"]))
     facts = refgraph.Facts(ref, src)
-    nominal = query.nominal_edges(facts, done, params)
+    nominal = query.nominal_edges(facts, win.done, params)
     if trace:
-        profile_rec["queries"] = len(done)
-        profile_rec["bytes"] = sum(query.compulsory_bytes(facts, done, params))
-    del samples, facts, ref, src
-    check_s = time.perf_counter() - t_check
+        traced["profile"]["queries"] = len(win.done)
+        traced["profile"]["bytes"] = sum(query.compulsory_bytes(facts, win.done, params))
+    del facts, ref, src
+    win.samples.clear()
+    return finish(cell, seed, win, traced, checks, nominal, marks, t_start, ingest_s, stored,
+                  peak, time.perf_counter() - t_check, device, log)
 
-    rec = dict(
-        cell=workload, analytic=traffic["analytic"], setup_s=setup_s, ingest_build_s=ingest_s,
-        window_s=window_s, latencies_s=latencies, nominal_edges=nominal, profile=profile_rec,
-    )
+
+def run_rank(root: Path, workload: str, seed: int, seconds: float, trace: bool,
+             device: torch.device, t_start: float, log=print):
+    """One rank's part of a run of a cell across cards, in a process of its
+    own beside one a card (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT`` in its environment, ``device`` its card). Returns rank
+    0's result line's object, and None on the others. Rank 0 drives the
+    loop, broadcasting each go or stop, and is the one traced; a query's
+    latency ends when every rank has synchronized and met at one barrier,
+    on rank 0's clock (both on a gloo group of the host, so that the
+    trace holds the port's work alone). ``t_start`` is the launcher's start,
+    on the ``time.perf_counter`` clock (the host's, in every process)."""
+    import torch.distributed as dist
+
+    import cugraph_tpu_torch as port
+    import cugraph_tpu_torch.dist  # noqa: F401 (the multi-card layer is imported on its own)
+
+    from .reference import split
+
+    cell = load_cell(root, workload)
+    config, traffic = cell.config, cell.traffic
+    query, reference, gen = cell_modules(cell)
+    for module, name in ((query, "run_mg"), (reference, "check_split"), (gen, "edge_chunks")):
+        if not hasattr(module, name):
+            raise ValueError(f"{workload} runs across cards: {module.__name__} has no {name}")
+    cuda = device.type == "cuda"
+    params = traffic["params"]
+    v = 1 << int(config["scale"])
+    symmetrize = bool(config["symmetrize"])
+
+    marks = [("imports", time.perf_counter())]
+    dev = port.dist.initialize_distributed(device=device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world != cell.chips:
+        raise ValueError(f"{workload} asks for {cell.chips} ranks, {world} joined")
+    mesh = port.dist.make_mesh(port.dist.mesh_shape_for(world), device=dev)
+    # the harness's own barrier and go/stop on the host (gloo): no launch,
+    # no device read in the traced window
+    control = dist.new_group(backend="gloo")
+
+    def meet():
+        """Every rank's queued work done, then one barrier."""
+        if cuda:
+            torch.cuda.synchronize(dev)
+        dist.barrier(group=control)
+
+    def chunks():
+        return gen.edge_chunks(config, derive_seed(seed, "edges"), dev)
+
+    args, warm = draw_args(traffic, chunks(), v, seed, dev)
+    meet()
+    marks.append(("mesh and roots", time.perf_counter()))
+    t = time.perf_counter()
+    g = port.dist.mg_graph.distribute_edgelist_chunks(mesh, chunks, num_vertices=v,
+                                                      symmetrize=symmetrize)
+    meet()
+    ingest_s = split.all_max(time.perf_counter() - t, dev)
+    marks.append(("ingest", time.perf_counter()))
+    for a in warm:
+        query.run_mg(port, mesh, g, a, params)
+    meet()
+    marks.append(("warm-up", time.perf_counter()))
+
+    def go(more: bool) -> bool:
+        flag = torch.tensor([int(more)], dtype=torch.int32)
+        dist.broadcast(flag, 0, group=control)
+        return bool(flag.numpy()[0])
+
+    window = min(seconds, float(traffic["trace_seconds"])) if trace else seconds
+    win = drive(lambda a: query.run_mg(port, mesh, g, a, params), meet, args, window,
+                int(traffic["check_sample"]), random.Random(derive_seed(seed, "sample")),
+                profiler(trace and rank == 0, cuda), log, go=go, catch=False)
+    mine = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    log(f"rank {rank}: peak device memory {mine} B")
+    peak = int(split.all_max(mine, dev))
+    traced = read_trace(win, log) if trace and rank == 0 else {}
+
+    # ---- the check, split over the ranks
+    t_check = time.perf_counter()
+    keys, bad = split.exchange_stored(g, v, symmetrize, rank, world, dev)
+    stored = split.all_sum(g.in_block.num_edges, dev)
+    del g
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    received = split.received(keys, bad)
+    del keys
+    shard = split.build_shard(chunks(), v, symmetrize, rank, world)
+    checks = {"graph_mismatch": (split.graph_mismatch(received, shard, dev),
+                                 GRAPH_MISMATCH_LIMIT)}
+    del received
+    checks.update(reference.check_split(shard, win.samples, win.notes, params,
+                                        traffic["limits"]))
+    facts = split.Facts(shard)
+    del shard
+    win.samples.clear()
+    nominal = query.nominal_edges(facts, win.done, params)
+    if rank:
+        dist.destroy_process_group()
+        return None
+    if trace:
+        # an even share of the query's compulsory bytes a card
+        traced["profile"]["queries"] = len(win.done)
+        traced["profile"]["bytes"] = sum(query.compulsory_bytes(facts, win.done, params)) / world
+    dist.destroy_process_group()
+    return finish(cell, seed, win, traced, checks, nominal, marks, t_start, ingest_s, stored,
+                  peak, time.perf_counter() - t_check, device, log)
+
+
+def finish(cell: Cell, seed: int, win: Window, traced: dict, checks: dict, nominal: list,
+           marks: list, t_start: float, ingest_s: float, stored: int, peak: int,
+           check_s: float, device: torch.device, log) -> dict:
+    """The result line's object: each metric of the cell read from the run
+    record; and the run's summary logged. ``marks`` are the set-up's
+    phases, (name, end), the last the end of set-up; ``traced`` is
+    ``read_trace``'s readings, empty untraced."""
+    cuda = device.type == "cuda"
+    rec = dict(cell=cell.name, analytic=cell.traffic["analytic"], setup_s=marks[-1][1] - t_start,
+               ingest_build_s=ingest_s, window_s=win.window_s, latencies_s=win.latencies,
+               nominal_edges=nominal, profile=traced.get("profile"), spans=traced.get("spans"),
+               setup_spans=traced.get("setup_spans"))
     metrics = {}
-    for m in cell.per_layer if trace else cell.end_to_end:
-        value = metric_reader(cell.bench_dir, m["name"], traffic["analytic"])(rec)
+    for m in cell.per_layer if rec["profile"] is not None else cell.end_to_end:
+        value = metric_reader(cell.bench_dir, m["name"], rec["analytic"])(rec)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    lat = sorted(latencies)
-    log(f"{workload} seed {seed}: {len(done)} queries completed, {failed} failed, "
-        f"{attempted} attempted in {window_s:.3f} s; p50 "
+    lat = sorted(win.latencies)
+    log(f"{cell.name} seed {seed}: {len(win.done)} queries completed, {win.failed} failed, "
+        f"{win.attempted} attempted in {win.window_s:.3f} s; p50 "
         f"{lat[len(lat) // 2] * 1e3 if lat else float('nan'):.3f} ms; stored edges {stored}; "
         f"peak device memory {peak} B; check {check_s:.3f} s")
     last = t_start
@@ -248,22 +426,24 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     for name, at in marks:
         parts.append(f"{name} {at - last:.3f}")
         last = at
-    log(f"set-up {setup_s:.3f} s: " + ", ".join(parts))
+    log(f"set-up {rec['setup_s']:.3f} s: " + ", ".join(parts))
     if cuda:
         for line in card_lines():
             log(line)
-    correct = failed == 0 and bool(done) and all(val <= lim for val, lim in checks.values())
+    correct = (win.failed == 0 and bool(win.done)
+               and all(val <= lim for val, lim in checks.values()))
     dev = dict(
         platform="gpu" if cuda else device.type,
         kind=torch.cuda.get_device_name(device) if cuda else device.type,
         count=cell.chips,
         memory_peak_bytes=peak,
     )
-    out = dict(correct=correct, attempted=attempted, failed=failed, metrics=metrics, device=dev)
-    if trace:
-        dev["busy_s"] = profile_rec["busy_s"]
-        dev["window_s"] = profile_rec["wall_s"]
-        out["breakdown"] = dict(device_ops=profile_rec["device_ops"],
-                                idle_gaps=profile_rec["idle_gaps"])
+    out = dict(correct=correct, attempted=win.attempted, failed=win.failed, metrics=metrics,
+               device=dev)
+    if rec["profile"] is not None:
+        dev["busy_s"] = rec["profile"]["busy_s"]
+        dev["window_s"] = rec["profile"]["wall_s"]
+        out["breakdown"] = dict(device_ops=rec["profile"]["device_ops"],
+                                idle_gaps=rec["profile"]["idle_gaps"])
     out["checks"] = {name: {"value": val, "limit": lim} for name, (val, lim) in checks.items()}
     return out

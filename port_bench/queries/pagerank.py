@@ -17,6 +17,13 @@ def run(port, graph, arg, params: dict):
     return scores, iterations
 
 
+def run_mg(port, mesh, graph, arg, params: dict):
+    """(result, note) on a cell across cards: this rank's range of the
+    scores, and the iteration count."""
+    del arg
+    return port.dist.mg_algos.mg_pagerank(mesh, graph, **params)
+
+
 def nominal_edges(facts, args, params: dict) -> list:
     return [facts.stored_edges * params["max_iterations"] for _ in args]
 

@@ -10,10 +10,11 @@ inside a call (``cgt/algorithms.*``) but outside its steps, and outside
 any call. From the program's ``setup_spans()``: the set-up phases.
 
 A program without spans reads as no spans: no counts, all idle outside
-calls, no set-up spans. The harness passes its readers no profiler
-events, so the metrics of ``BENCHMARK.json`` take only the set-up spans
-(``metrics/ingest.*_s.py``), which the program times with its own CUDA
-events; ``spans_run.py`` runs a cell with the rest.
+calls, no set-up spans. A traced run's record holds the window's
+``summarize`` under ``spans`` and the program's set-up spans under
+``setup_spans``; the metrics' readers take them through the functions at
+the end of this file. The set-up spans' device times are the program's
+own CUDA events, not the trace's.
 """
 
 from __future__ import annotations
@@ -167,7 +168,8 @@ def read_spans(prof) -> dict:
     for e in prof.events():
         start, stop = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CUDA:
-            device.append((start, stop))
+            if not timing.is_annotation(e):
+                device.append((start, stop))
             continue
         window = [min(window[0], start), max(window[1], stop)]
         if e.name.startswith(PREFIX):
@@ -175,16 +177,6 @@ def read_spans(prof) -> dict:
         elif e.name in BLOCKING_OPS:
             blocking[e.name].append(start)
     return summarize(device, spans, blocking, window if window[0] <= window[1] else None)
-
-
-def device_op_counts(prof, top: int = timing.TOP) -> list:
-    """[[device operation, count]] of the window, the most frequent first:
-    a kernel's launches as the device saw them."""
-    from torch.autograd import DeviceType
-
-    counts = collections.Counter(e.name[:120] for e in prof.events()
-                                 if e.device_type == DeviceType.CUDA)
-    return [[k, v] for k, v in counts.most_common(top)]
 
 
 def program_setup_spans():
@@ -197,49 +189,42 @@ def program_setup_spans():
     return read() if read is not None else None
 
 
-def setup_seconds(setup: list, name: str, key: str):
+# ---- the readings of the metrics that rest on the spans, from a run
+# record (``harness.read_trace``: ``spans``, ``setup_spans``, ``profile``)
+
+def setup_seconds(rec: dict, name: str, key: str):
     """``key`` (``host_s`` or ``device_s``) of the newest set-up span named
-    ``name`` (the graph this run built, where a process built several), or
-    None."""
-    values = [s[key] for s in setup if s["name"] == name]
-    return values[-1] if values else None
-
-
-def program_setup_seconds(name: str, key: str):
-    """``setup_seconds`` of the program's own set-up spans: None for a
-    program older than the spans and for a span with no such time (no
-    device time on the CPU); LookupError where the program keeps set-up
-    spans but none named ``name``."""
-    setup = program_setup_spans()
+    ``name`` (the graph this run built, where a process built several):
+    None untraced, for a program older than the spans and for a span with
+    no such time (no device time on the CPU); LookupError where the
+    program keeps set-up spans but none named ``name``."""
+    setup = rec.get("setup_spans")
     if setup is None:
         return None
-    if not any(s["name"] == name for s in setup):
+    values = [s[key] for s in setup if s["name"] == name]
+    if not values:
         raise LookupError(f"the program keeps set-up spans, but none named {name}")
-    return setup_seconds(setup, name, key)
+    return values[-1]
 
 
-def per_layer(summary: dict, setup: list, analytic: str, busy_s: float) -> dict:
-    """The per-layer readings of one traced run that rest on the spans:
-    idle a step (ms), blocking reads, dense and sparse levels a call, and
-    the set-up spans' seconds; None where there is nothing to read."""
-    counts = summary["counts"]
-    calls = counts.get(CALL + analytic, 0)
-    steps = sum(n for k, n in counts.items() if k.startswith(f"{STEP}{analytic}."))
+def per_query(rec: dict, prefix: str):
+    """The spans whose name starts with ``prefix`` in the traced window,
+    over the calls of the cell's analytic (``cgt/algorithms.<a>``); None
+    untraced or without calls."""
+    summary = rec.get("spans")
+    calls = summary["counts"].get(CALL + rec["analytic"], 0) if summary else 0
+    if not calls:
+        return None
+    return sum(n for k, n in summary["counts"].items() if k.startswith(prefix)) / calls
 
-    def per_call(n):
-        return n / calls if calls else None
 
-    return {
-        f"algorithms.idle_ms_per_step.{analytic}":
-            1e3 * summary["idle_s"][IN_STEPS] / steps if steps and busy_s else None,
-        f"algorithms.syncs_per_query.{analytic}":
-            per_call(sum(n for k, n in counts.items() if k.startswith(SYNC))),
-        f"algorithms.dense_levels_per_query.{analytic}":
-            per_call(counts.get(f"{STEP}{analytic}.dense", 0)),
-        f"algorithms.sparse_levels_per_query.{analytic}":
-            per_call(counts.get(f"{STEP}{analytic}.sparse", 0)),
-        "ingest.validate_s": setup_seconds(setup, "cgt/ingest.validate", "device_s"),
-        "ingest.symmetrize_s": setup_seconds(setup, "cgt/ingest.symmetrize", "device_s"),
-        "ingest.compress_s": setup_seconds(setup, "cgt/ingest.compress", "device_s"),
-        "setup.port_import_s": setup_seconds(setup, "cgt/setup.import", "host_s"),
-    }
+def idle_ms_per_step(rec: dict):
+    """The device's idle milliseconds inside the analytic's steps
+    (``cgt/step.<a>.*``: an iteration, a level), over the steps; None
+    untraced, without steps, or where the device ran nothing (the CPU)."""
+    summary, profile = rec.get("spans"), rec.get("profile")
+    if not summary or not profile or not profile["busy_s"]:
+        return None
+    steps = sum(n for k, n in summary["counts"].items()
+                if k.startswith(f"{STEP}{rec['analytic']}."))
+    return 1e3 * summary["idle_s"][IN_STEPS] / steps if steps else None

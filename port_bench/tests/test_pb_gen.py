@@ -1,12 +1,15 @@
 """The generators: the same seed gives the same tuples, another seed other
-ones, and Kron is skewed where Urand is not."""
+ones, and Kron is skewed where Urand is not; the same of the chunked
+draws of a cell across cards."""
 
+import hashlib
 import json
 
 import pytest
 import torch
 from pb_helpers import BENCH, SEED
 
+import port_bench.gen
 from port_bench.gen import kronecker, uniform
 
 
@@ -45,3 +48,43 @@ def test_kron_skewed_urand_flat():
     # Kron's ids are scrambled: the hubs are not the low ids
     top = torch.topk(kron, 16).indices
     assert int(top.min()) > 16
+
+
+# sha256 of edges()' (src, dst) bytes at scale 10 on the CPU for SEED: the
+# tuples that the cells on one card have drawn since the benchmark began
+EDGES_SHA256 = {
+    "gap-kron-s24": "7a0fd47b2e5eae9fe36272c7053f37bf75534796fb617e6c102bf68a3cc73357",
+    "gap-urand-s24": "cce966e38f376c65a44c308b68e2c8a637f6dcceead475e36d1d5bec3967b5e6",
+}
+
+
+@pytest.mark.parametrize("gen,name", [(kronecker, "gap-kron-s24"), (uniform, "gap-urand-s24")])
+def test_edges_are_the_same_tuples(gen, name):
+    s, d = gen.edges(config(name, scale=10), SEED, torch.device("cpu"))
+    digest = hashlib.sha256(s.numpy().tobytes() + d.numpy().tobytes()).hexdigest()
+    assert digest == EDGES_SHA256[name]
+
+
+@pytest.mark.parametrize("gen,name", [(kronecker, "gap-kron-s24"), (uniform, "gap-urand-s24")])
+def test_edge_chunks(monkeypatch, gen, name):
+    """The same seed gives the same chunks, another seed other ones; every
+    chunk but the last holds CHUNK_TUPLES tuples, all of them in range."""
+    monkeypatch.setattr(port_bench.gen, "CHUNK_TUPLES", 3000)
+    c = config(name)
+    cpu = torch.device("cpu")
+    first = list(gen.edge_chunks(c, SEED, cpu))
+    again = list(gen.edge_chunks(c, SEED, cpu))
+    other = list(gen.edge_chunks(c, SEED + 1, cpu))
+    n = 1 << c["scale"]
+    assert [s.numel() for s, _ in first] == [3000] * 21 + [c["edge_factor"] * n - 63000]
+    assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(first, again))
+    assert not torch.equal(first[0][0], other[0][0])
+    assert not torch.equal(first[0][0], first[1][0])  # each chunk draws its own tuples
+    s, d = torch.cat([s for s, _ in first]), torch.cat([d for _, d in first])
+    assert s.dtype == torch.int32 and int(torch.minimum(s, d).min()) >= 0
+    assert int(torch.maximum(s, d).max()) < n
+    deg = torch.bincount(torch.cat([s, d]).long(), minlength=n).double()
+    if gen is kronecker:  # skewed as edges() is, and scrambled by one permutation
+        assert deg.max() > 20 * deg.mean() and int(torch.topk(deg, 16).indices.min()) > 16
+    else:
+        assert deg.max() < 3 * deg.mean()

@@ -75,10 +75,11 @@ def test_per_layer_readers(analytic):
     assert read(f"kernels.{analytic}_roofline", idle) is None
 
 
-def event(start, end, name, device):
+def event(start, end, name, device, annotation=False):
     return types.SimpleNamespace(
         time_range=types.SimpleNamespace(start=start, end=end), name=name,
-        device_type=DeviceType.CUDA if device else DeviceType.CPU)
+        device_type=DeviceType.CUDA if device else DeviceType.CPU,
+        is_user_annotation=annotation)
 
 
 def test_busy_union_and_gaps():
@@ -99,6 +100,8 @@ def test_read_profile():
         event(0, 400_000, "spmv", True),
         event(500_000, 600_000, "spmv", True),
         event(600_000, 700_000, "fill", True),
+        # NCCL's range over its kernel is no operation of its own
+        event(600_000, 900_000, "nccl:all_reduce", True, annotation=True),
     ]
     prof = types.SimpleNamespace(events=lambda: events)
     p = timing.read_profile(prof, 1.0)

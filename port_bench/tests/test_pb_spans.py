@@ -1,15 +1,16 @@
 """The reading of the program's spans (``spans.py``) on made-up profiler
-events, the readers of the metrics that take them, and ``spans_run.py``."""
+events, the readers of the metrics that take them from a run's record, and
+a traced run on the CPU that records them."""
 
+import json
 import math
-import subprocess
 import sys
 import time
 import types
 
 import pytest
 import torch
-from pb_helpers import BENCH, REPO, SEED
+from pb_helpers import BENCH, SEED
 from test_pb_metrics import RECORD, event
 
 from port_bench import harness, spans, timing
@@ -108,7 +109,7 @@ def test_the_split_and_the_edges_make_the_windows_idle_time():
     assert no_window["idle_edges_s"] == [0.0, 0.0]
 
 
-def test_per_layer_readings():
+def test_span_readers_on_a_record():
     summary = spans.summarize(DEVICE, SPANS, {timing.HOST_READ_OP: READS})
     setup = [
         dict(name="cgt/setup.import", parent=None, host_s=2.5, device_s=None),
@@ -116,76 +117,95 @@ def test_per_layer_readings():
         dict(name="cgt/ingest.compress", parent=None, host_s=0.05, device_s=0.2),
         dict(name="cgt/ingest.compress", parent=None, host_s=0.05, device_s=0.25),
     ]
-    got = spans.per_layer(summary, setup, "bfs", busy_s=1.0)
-    assert got["algorithms.idle_ms_per_step.bfs"] == pytest.approx(
+    rec = dict(RECORD, analytic="bfs", spans=summary, setup_spans=setup,
+               profile=dict(RECORD["profile"], busy_s=1.0))
+
+    def read(name, r=rec):
+        return harness.metric_reader(BENCH, name, r["analytic"])(r)
+
+    assert read("algorithms.idle_ms_per_step.bfs") == pytest.approx(
         1e3 * summary["idle_s"]["in_steps"] / 3)
-    assert got["algorithms.syncs_per_query.bfs"] == 2.0
-    assert got["algorithms.dense_levels_per_query.bfs"] == 1.0
-    assert got["algorithms.sparse_levels_per_query.bfs"] == 0.5
-    assert got["ingest.symmetrize_s"] == 0.3
-    assert got["ingest.compress_s"] == 0.25  # the newest graph's
-    assert got["ingest.validate_s"] is None
-    assert got["setup.port_import_s"] == 2.5
+    assert read("algorithms.syncs_per_query.bfs") == 2.0
+    assert read("algorithms.dense_levels_per_query.bfs") == 1.0
+    assert read("algorithms.sparse_levels_per_query.bfs") == 0.5
+    assert read("ingest.symmetrize_s") == 0.3
+    assert read("ingest.compress_s") == 0.25  # the newest graph's
+    assert read("setup.port_import_s") == 2.5
     # another analytic's calls and steps are not this one's; no device, no idle
-    other = spans.per_layer(summary, [], "pagerank", busy_s=1.0)
-    assert all(v is None for v in other.values())
-    assert spans.per_layer(summary, setup, "bfs", busy_s=0.0)[
-        "algorithms.idle_ms_per_step.bfs"] is None
+    other = dict(rec, analytic="pagerank")
+    assert read("algorithms.idle_ms_per_step.pagerank", other) is None
+    assert spans.per_query(other, spans.SYNC) is None
+    assert read("algorithms.idle_ms_per_step.bfs",
+                dict(rec, profile=dict(rec["profile"], busy_s=0.0))) is None
+    # untraced: nothing to read
+    untraced = dict(RECORD, analytic="bfs", profile=None, spans=None, setup_spans=None)
+    for name in ("algorithms.idle_ms_per_step.bfs", "algorithms.syncs_per_query.bfs",
+                 "algorithms.dense_levels_per_query.bfs", "setup.port_import_s",
+                 "ingest.compress_s"):
+        assert read(name, untraced) is None
 
 
 @pytest.mark.parametrize("name", ["ingest.symmetrize_s", "ingest.compress_s"])
-def test_the_ingest_readers_read_the_programs_set_up_spans(name, monkeypatch):
+def test_the_ingest_readers_read_the_programs_set_up_spans(name):
     path = harness.reader_path(BENCH, name, "bfs")
     assert path == BENCH / "metrics" / f"{name}.py"
     read = harness.metric_reader(BENCH, name, "bfs")
     span = "cgt/" + name[:-2]
-    fake = types.SimpleNamespace(setup_spans=lambda: [
-        dict(name=span, parent=None, host_s=0.1, device_s=0.5),
-        dict(name=span, parent=None, host_s=0.1, device_s=0.25)])
-    monkeypatch.setitem(sys.modules, "cugraph_tpu_torch.utils.timer", fake)
-    assert read(RECORD) == 0.25
+    rec = dict(RECORD, setup_spans=[dict(name=span, parent=None, host_s=0.1, device_s=0.5),
+                                    dict(name=span, parent=None, host_s=0.1, device_s=0.25)])
+    assert read(rec) == 0.25
     # a program older than the spans, and a span with no device time (the CPU)
-    monkeypatch.setitem(sys.modules, "cugraph_tpu_torch.utils.timer", types.SimpleNamespace())
-    assert read(RECORD) is None
-    monkeypatch.setitem(sys.modules, "cugraph_tpu_torch.utils.timer", types.SimpleNamespace(
-        setup_spans=lambda: [dict(name=span, parent=None, host_s=0.1, device_s=None)]))
-    assert read(RECORD) is None
-    # a program that keeps set-up spans but not this one, or has no timer
-    monkeypatch.setitem(sys.modules, "cugraph_tpu_torch.utils.timer", types.SimpleNamespace(
-        setup_spans=lambda: [dict(name="cgt/ingest.validate", parent=None, host_s=0.1,
-                                  device_s=0.5)]))
+    assert read(dict(RECORD, setup_spans=None)) is None
+    assert read(dict(RECORD, setup_spans=[dict(name=span, parent=None, host_s=0.1,
+                                               device_s=None)])) is None
+    # a program that keeps set-up spans but not this one
     with pytest.raises(LookupError, match=span):
-        read(RECORD)
+        read(dict(RECORD, setup_spans=[dict(name="cgt/ingest.validate", parent=None,
+                                            host_s=0.1, device_s=0.5)]))
+
+
+def test_program_setup_spans(monkeypatch):
+    fake = types.SimpleNamespace(setup_spans=lambda: [dict(name="cgt/setup.import")])
+    monkeypatch.setitem(sys.modules, "cugraph_tpu_torch.utils.timer", fake)
+    assert spans.program_setup_spans() == [dict(name="cgt/setup.import")]
+    monkeypatch.setitem(sys.modules, "cugraph_tpu_torch.utils.timer", types.SimpleNamespace())
+    assert spans.program_setup_spans() is None
     monkeypatch.setitem(sys.modules, "cugraph_tpu_torch.utils.timer", None)
     with pytest.raises(ImportError):
-        read(RECORD)
+        spans.program_setup_spans()
 
 
-def test_spans_run_on_the_cpu(tiny_root):
-    from port_bench import spans_run
+def test_a_traced_run_records_the_spans(tiny_root):
+    """A traced BFS run on the CPU: the record's spans count every call,
+    every host read of the window lies in one read span, and the span
+    metrics are in the result line."""
+    seen = {}
+    read_trace = harness.read_trace
 
-    result, line = spans_run.run(tiny_root, "kron24.bfs", SEED, 0.3, torch.device("cpu"),
-                                 time.perf_counter())
-    assert result["correct"] is True
-    calls = line["counts"]["cgt/algorithms.bfs"]
-    assert calls == result["attempted"]
-    # every host read of the window lies in one read span, one a span
-    assert set(line["outside_syncs"].values()) == {0}
-    assert line["syncs_with_host_read"] == result["metrics"][
+    def keep(win, log):
+        seen.update(read_trace(win, log))
+        return seen
+
+    harness.read_trace = keep
+    try:
+        logged = []
+        out = harness.run_cell(tiny_root, "kron24.bfs", SEED, 0.3, True, torch.device("cpu"),
+                               time.perf_counter(), log=logged.append)
+    finally:
+        harness.read_trace = read_trace
+    assert out["correct"] is True
+    summary = seen["spans"]
+    calls = summary["counts"]["cgt/algorithms.bfs"]
+    assert calls == out["attempted"]
+    assert set(summary["outside_syncs"].values()) == {0}
+    assert summary["syncs_with_host_read"] == out["metrics"][
         "algorithms.host_reads_per_query.bfs"]["value"] * calls
-    per_layer = line["per_layer"]
-    assert per_layer["algorithms.dense_levels_per_query.bfs"] > 0
-    assert per_layer["algorithms.idle_ms_per_step.bfs"] is None  # the CPU has no device time
-    assert per_layer["setup.port_import_s"] > 0
+    m = out["metrics"]
+    assert m["algorithms.dense_levels_per_query.bfs"]["value"] > 0
+    assert m["algorithms.syncs_per_query.bfs"]["value"] > 0
+    assert m["setup.port_import_s"]["value"] > 0
+    assert "algorithms.idle_ms_per_step.bfs" not in m  # the CPU has no device time
     assert {"cgt/ingest.validate", "cgt/ingest.symmetrize", "cgt/ingest.compress"} <= {
-        s["name"] for s in line["setup_spans"]}
-
-
-def test_spans_run_refuses_without_a_card():
-    proc = subprocess.run(
-        [sys.executable, "port_bench/spans_run.py", "--workload", "kron24.bfs", "--seed", "1"],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
-        env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""},
-    )
-    assert proc.returncode != 0 and proc.stdout == ""
-    assert "no CUDA card" in proc.stderr
+        s["name"] for s in seen["setup_spans"]}
+    line = [msg for msg in logged if msg.startswith("spans: ")]
+    assert len(line) == 1 and json.loads(line[0][len("spans: "):])["counts"] == summary["counts"]

@@ -4,8 +4,9 @@ and the reading of a torch.profiler window (frozen copies of
 the program cannot move them).
 
 Device intervals are the profiler's CUDA events (kernels, memsets and
-copies); the device's busy time is the union of those intervals, so
-operations on two streams at once count once.
+copies; not the annotations a library lays over them); the device's busy
+time is the union of those intervals, so operations on two streams at
+once count once.
 """
 
 from __future__ import annotations
@@ -63,6 +64,12 @@ def idle_gaps(device, host):
     return out
 
 
+def is_annotation(event) -> bool:
+    """A range that a library lays over the device's timeline (NCCL's
+    ``nccl:<collective>`` over its kernel), not an operation of its own."""
+    return bool(getattr(event, "is_user_annotation", False))
+
+
 def read_profile(prof, wall_s: float) -> dict:
     """What the metric readers take from one torch.profiler window: its
     wall seconds, the device's busy seconds, the count of device
@@ -75,6 +82,8 @@ def read_profile(prof, wall_s: float) -> dict:
     for e in prof.events():
         start, stop = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CUDA:
+            if is_annotation(e):
+                continue
             device.append((start, stop))
             by_op[e.name[:120]] += (stop - start) / 1e6
         else:
