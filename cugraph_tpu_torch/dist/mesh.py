@@ -13,6 +13,9 @@ and ``Mesh2D`` carries the two process groups that stand for the axes
 
 Rank = i * cols + j, the order of ``np.asarray(devices).reshape(r, c)``.
 NCCL joins the cards; gloo runs the same code on the CPU for the tests.
+Each collective here is a span named for its operation
+(``cgt/collective.all_gather``, ``.reduce_scatter``, ``.all_reduce``;
+``utils/timer.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch.distributed as dist
 
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.error import expects
+from ..utils.timer import spanned
 
 
 # torch 2.13 renamed the tensor-in, tensor-out collectives; older releases
@@ -35,6 +39,7 @@ _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_t
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
+@spanned("cgt/collective.all_gather")
 def all_gather_rows(t: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """Every group member's ``t``, concatenated along dim 0 in group-rank
     order (the world when ``group`` is None)."""
@@ -45,6 +50,7 @@ def all_gather_rows(t: torch.Tensor, group: Optional[dist.ProcessGroup] = None) 
     return out
 
 
+@spanned("cgt/collective.reduce_scatter")
 def reduce_scatter_rows(
     t: torch.Tensor, op: dist.ReduceOp, group: dist.ProcessGroup
 ) -> torch.Tensor:
@@ -55,6 +61,17 @@ def reduce_scatter_rows(
     out = torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
     _reduce_scatter(out, t, op=op, group=group)
     return out
+
+
+@spanned("cgt/collective.all_reduce")
+def all_reduce(
+    t: torch.Tensor, op: dist.ReduceOp = dist.ReduceOp.SUM,
+    group: Optional[dist.ProcessGroup] = None,
+) -> torch.Tensor:
+    """Reduce ``t`` in place over the group (the world when ``group`` is
+    None) by ``op``; returns ``t``."""
+    dist.all_reduce(t, op=op, group=group)
+    return t
 
 
 def mesh_shape_for(n_devices: int) -> Tuple[int, int]:

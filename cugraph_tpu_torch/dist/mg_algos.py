@@ -7,11 +7,15 @@ graph share, and gets back the values of its own vertex range, (vp, ...)
 tensors; ``mg_graph.unshard_vertex_values`` gathers the global array.
 Where the JAX package keeps the loop's scalars on the device inside one
 jit, the port reads them on the host once per iteration, as its
-single-device loops do.
+single-device loops do. ``mg_pagerank`` carries the single-device loop's
+spans (``utils/timer.py``): ``cgt/algorithms.pagerank`` a call,
+``cgt/step.pagerank.iteration`` an iteration, ``cgt/sync.pagerank.<site>``
+a host read.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional, Tuple
 
 import torch
@@ -21,6 +25,7 @@ from ..prims.reduce_ops import ANY, MAXIMUM, MINIMUM, PLUS
 from ..utils.device import as_tensor, resolve_device
 from ..utils.dtypes import VERTEX_DTYPE, WEIGHT_DTYPE
 from ..utils.error import expects, expects_vertex_ids
+from ..utils.timer import span, spanned
 from . import mg_prims
 from .mesh import Mesh2D
 from .mg_graph import MGGraph, shard_vertex_values
@@ -68,7 +73,36 @@ def mg_in_degrees(mesh: Mesh2D, mgg: MGGraph) -> torch.Tensor:
 # PageRank: the loop of algos/link_analysis.py (ref pagerank_impl.cuh:209)
 # ---------------------------------------------------------------------------
 
+# iterations of ``mg_pagerank`` queued on the device past the one whose
+# change the host reads: 4 cover a host stall of about 70 ms at GAP's Kron
+# scale 27 on a 2 x 2 mesh of H100s (17 ms an iteration), for about 0.7 GB
+# of buffers a queued iteration there (the all-gather's and reduce-scatter's,
+# from their shapes)
+PAGERANK_LOOKAHEAD = 4
 
+
+class _HostRead:
+    """A device scalar's copy to the host, started at once: on a card into
+    pinned memory behind an event, so that ``value()`` waits for the work
+    queued before it and not for what was queued since."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            t = host
+        self.host = t
+
+    def value(self) -> float:
+        if self.event is not None:
+            self.event.synchronize()
+        return float(self.host)
+
+
+@spanned("cgt/algorithms.pagerank")
 def mg_pagerank(
     mesh: Mesh2D,
     mgg: MGGraph,
@@ -89,9 +123,12 @@ def mg_pagerank(
     ``per_v_incoming_sorted``, so one ``spmv_sum`` launch on a card
     (``gather_mode="all_gather"``), or R of them around the ring over
     ``row_group`` (``"ring"``: peak src-side memory (vp,), not R*vp;
-    another mode raises ValueError)."""
+    another mode raises ValueError). Unlike the single-device loop, the
+    loop queues ``PAGERANK_LOOKAHEAD`` iterations past the one whose change
+    it reads, so a call that stops on the tolerance launches up to that
+    many iterations more than it runs."""
     v = mgg.num_vertices
-    gid, vmask = _local_ids(mesh, mgg)
+    _, vmask = _local_ids(mesh, mgg)
     dev = mesh.device
     out_wsum = mg_out_weight_sums(mesh, mgg)
     dangling = vmask & (out_wsum <= 0)
@@ -99,8 +136,9 @@ def mg_pagerank(
     if personalization is not None:
         ids = as_tensor(personalization[0], torch.int64, dev).reshape(-1)
         vals = as_tensor(personalization[1], WEIGHT_DTYPE, dev).reshape(-1)
-        expects_vertex_ids(ids, v, "personalization")
-        lo = int(gid[0])
+        with span("cgt/sync.pagerank.personalization"):
+            expects_vertex_ids(ids, v, "personalization")
+        lo, _ = mgg.partition.range_of(mesh.i, mesh.j)
         mine = (ids >= lo) & (ids < lo + mgg.vp)
         local = torch.zeros(mgg.vp, dtype=WEIGHT_DTYPE, device=dev)
         local.index_add_(0, ids[mine] - lo, vals[mine])
@@ -115,14 +153,30 @@ def mg_pagerank(
     else:
         pr = torch.where(vmask, 1.0 / v, 0.0).to(WEIGHT_DTYPE)
 
-    diff, it = float("inf"), 0
-    while diff > v * tol and it < max_iterations:
+    def launch(pr):
+        """One iteration queued on the device: (new scores, the read of
+        their L1 change)."""
         agg = mg_prims.per_v_incoming_sorted(mesh, mgg, pr * inv_out, gather_mode=gather_mode)
         d_sum = mg_prims.transform_reduce_v(mesh, torch.where(dangling, pr, 0.0))
         new = alpha * (agg + d_sum * reset) + (1.0 - alpha) * reset
         new = torch.where(vmask, new, 0.0)
-        diff = float(mg_prims.transform_reduce_v(mesh, (new - pr).abs()))
-        pr, it = new, it + 1
+        return new, _HostRead(mg_prims.transform_reduce_v(mesh, (new - pr).abs()))
+
+    # Iterations are queued PAGERANK_LOOKAHEAD past the one whose change is
+    # read, each change copied to the host behind its own event: a rank
+    # whose host stalls for less than that many iterations' device time
+    # keeps its card busy, where it would leave every card waiting in the
+    # next collective. Where the loop stops on the tolerance, the queued
+    # iterations are dropped unread.
+    diff, it, queued = float("inf"), 0, collections.deque()
+    while diff > v * tol and it < max_iterations:
+        with span("cgt/step.pagerank.iteration"):
+            while len(queued) <= PAGERANK_LOOKAHEAD and it + len(queued) < max_iterations:
+                queued.append(launch(queued[-1][0] if queued else pr))
+            new, l1 = queued.popleft()
+            with span("cgt/sync.pagerank.diff"):
+                diff = l1.value()
+            pr, it = new, it + 1
     if fail_on_nonconvergence:
         expects(diff <= v * tol, "MG PageRank failed to converge")
     return pr, it

@@ -12,6 +12,10 @@ SURVEY.md §2.3):
   ``mesh.col_group`` (each rank keeps its own range's merged values);
 - its host scalar allreduce -> all-reduce over the world.
 
+Each collective is a span named for its operation,
+``cgt/collective.<op>`` (``mesh.py``'s three, and here ``all_to_all`` and
+the ring's ``send_recv``).
+
 Local shapes: vertex values (vp, ...); per-block dst partials (C * vp,
 ...), indexed by the ``in_block`` major b * vp + local dst. The e_op
 signature is the single-device prims' (global src and dst ids, gathered
@@ -33,7 +37,8 @@ import torch.distributed as dist
 from ..core.csr import CompressedAdj, _build_adj
 from ..prims.cuda import spmm_rows, spmv_minplus, spmv_sum
 from ..prims.reduce_ops import MINIMUM, PLUS, ReduceOp
-from .mesh import Mesh2D, all_gather_rows, reduce_scatter_rows
+from ..utils.timer import span, spanned
+from .mesh import Mesh2D, all_gather_rows, all_reduce, reduce_scatter_rows
 from .mg_graph import MGGraph
 
 _DIST_OP = {"sum": dist.ReduceOp.SUM, "amin": dist.ReduceOp.MIN, "amax": dist.ReduceOp.MAX}
@@ -74,9 +79,7 @@ def _merge_src_partials(mesh: Mesh2D, partials: torch.Tensor, reduce_op: ReduceO
 def transform_reduce_v(mesh: Mesh2D, values_local: torch.Tensor) -> torch.Tensor:
     """Global sum of per-vertex values, a 0-d tensor on every rank (an
     all-reduce over the world; the JAX package psums over both axes)."""
-    total = values_local.sum(0)
-    dist.all_reduce(total)
-    return total
+    return all_reduce(values_local.sum(0))
 
 
 def _global_edge_ids(mesh: Mesh2D, mgg: MGGraph) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -225,8 +228,9 @@ def _incoming_sum_ring(mesh: Mesh2D, mgg: MGGraph, msg: torch.Tensor, use_weight
         nxt = torch.empty_like(chunk)
         ops = [dist.P2POp(dist.isend, chunk, send_to, group=mesh.row_group),
                dist.P2POp(dist.irecv, nxt, recv_from, group=mesh.row_group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        with span("cgt/collective.send_recv"):
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
         chunk = nxt
         acc = acc + spmv_sum(blocks[(mesh.i + t) % r], chunk, use_weights=use_weights)
     return acc
@@ -361,6 +365,7 @@ def _bucket_by(dest: torch.Tensor, valid: torch.Tensor, n_buckets: int, capacity
     return slot, kept, counts_all[:n_buckets]
 
 
+@spanned("cgt/collective.all_to_all")
 def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """Equal-split all-to-all along dim 0 over ``group``: slice k goes to
     group rank k, and slice k of the result came from group rank k. Bools
@@ -373,9 +378,7 @@ def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
 
 def _global_sum(x: torch.Tensor) -> int:
     """An integer summed over every rank, read on the host."""
-    x = x.to(torch.int64).reshape(1)
-    dist.all_reduce(x)
-    return int(x)
+    return int(all_reduce(x.to(torch.int64).reshape(1)))
 
 
 def _shuffle_axis(items: dict, dest, valid, group, capacity: int):

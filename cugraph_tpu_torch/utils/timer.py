@@ -18,7 +18,8 @@ memory, and a Chrome-trace writer.
   ``setup_spans()``: its host start and end, its parent set-up span, and
   where ``device`` is a CUDA device its device time, from two CUDA events
   resolved when the spans are read (the span never waits). The newest
-  ``SETUP_SPANS_KEPT`` are kept.
+  ``SETUP_SPANS_KEPT`` are kept. Inside it, ``count(key, value)`` keeps a
+  counter with the span (``cgt/ingest.coalesce``'s dropped pairs, say).
 - ``profiler_trace(log_dir)``: records a block with ``torch.profiler`` and
   writes its Chrome trace, spans and kernels together, for a look at one
   run in Perfetto.
@@ -67,6 +68,11 @@ class _SetupSpan:
     def __init__(self, name: str, device):
         self.name = name
         self.device = None if device is None else torch.device(device)
+        self.counters = {}
+
+    def count(self, key: str, value: int) -> None:
+        """Keep ``value`` under ``key`` with this span."""
+        self.counters[key] = value
 
     def __enter__(self):
         self.parent = _parent()
@@ -90,7 +96,8 @@ class _SetupSpan:
         if self.traced is not None:
             self.traced.__exit__(*exc)
         _open_names().pop()
-        _setup_spans.append((self.name, self.parent, self.start, end, self.events))
+        _setup_spans.append((self.name, self.parent, self.start, end, self.events,
+                             self.counters))
         return False
 
 
@@ -123,7 +130,7 @@ def record_setup_span(name: str, start: float, end: float) -> None:
     """Keep a set-up span timed by the caller on the ``time.perf_counter``
     clock (one whose start precedes this module, or that ran beside
     others), under the innermost set-up span open."""
-    _setup_spans.append((name, _parent(), start, end, None))
+    _setup_spans.append((name, _parent(), start, end, None, {}))
 
 
 def setup_spans() -> List[dict]:
@@ -131,15 +138,19 @@ def setup_spans() -> List[dict]:
     span it ran in, or None), ``start_s`` and ``end_s`` on the
     ``time.perf_counter`` clock, ``host_s``, and ``device_s``: the time
     between the span's CUDA events (waiting here for the end event), None
-    for a span on the CPU or on no device."""
+    for a span on the CPU or on no device; and ``counters``, where the span
+    kept any."""
     out = []
-    for name, parent, start, end, events in sorted(_setup_spans, key=lambda kept: kept[2]):
+    for name, parent, start, end, events, counters in sorted(_setup_spans,
+                                                             key=lambda kept: kept[2]):
         device_s = None
         if events is not None:
             events[1].synchronize()
             device_s = events[0].elapsed_time(events[1]) / 1e3
         out.append(dict(name=name, parent=parent, start_s=start, end_s=end,
                         host_s=end - start, device_s=device_s))
+        if counters:
+            out[-1]["counters"] = dict(counters)
     return out
 
 

@@ -246,6 +246,74 @@ def run_rmat_shards(rank: int, shape, scale: int, num_edges: int, seed: int) -> 
                          "majors": _np(blk.majors)}}
 
 
+def _blocks(mgg) -> dict:
+    """A rank's MGGraph as numpy arrays and its counts."""
+    adj = {name: {key: None if getattr(blk, key) is None else _np(getattr(blk, key))
+                  for key in ("offsets", "minors", "majors", "weights")}
+           for name, blk in (("in_block", mgg.in_block), ("out_block", mgg.out_block))}
+    return dict(adj, block_counts=_np(mgg.block_counts), num_edges=mgg.num_edges,
+                d_pad=mgg.d_pad, vp=mgg.vp, is_symmetric=mgg.is_symmetric)
+
+
+def run_ingest(rank: int, shape, chunks: list, num_vertices: int) -> dict:
+    """The streamed ingest of ``chunks`` ((src, dst, weight) numpy arrays)
+    beside the single-shot one, with and without symmetrize and weights;
+    its set-up spans (with the times each chunk was drawn, to hold them
+    outside the spans); and ``mg_pagerank`` on the streamed symmetric
+    graph under the profiler, with the counts of its spans."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cugraph_tpu_torch.dist import make_mesh, mg_algos
+    from cugraph_tpu_torch.dist.mg_graph import (distribute_edgelist,
+                                                 distribute_edgelist_chunks)
+    from cugraph_tpu_torch.utils import timer
+
+    mesh = make_mesh(shape, device="cpu")
+    src = np.concatenate([c[0] for c in chunks])
+    dst = np.concatenate([c[1] for c in chunks])
+    w = np.concatenate([c[2] for c in chunks])
+    unweighted = [(s, d, None) for s, d, _ in chunks]
+    drawn = []
+
+    def source():
+        for chunk in unweighted:
+            drawn.append(time.perf_counter())
+            yield chunk
+            drawn.append(time.perf_counter())
+
+    out = {"i": mesh.i, "j": mesh.j}
+    before = len(timer.setup_spans())
+    out["streamed"] = _blocks(distribute_edgelist_chunks(mesh, source, num_vertices=num_vertices,
+                                                         symmetrize=True))
+    out["setup_spans"] = timer.setup_spans()[before:]
+    out["drawn"] = drawn
+    out["single_shot"] = _blocks(distribute_edgelist(mesh, src, dst, num_vertices=num_vertices,
+                                                     symmetrize=True))
+    out["streamed_weighted"] = _blocks(distribute_edgelist_chunks(
+        mesh, chunks, num_vertices=num_vertices, symmetrize=True))
+    out["single_shot_weighted"] = _blocks(distribute_edgelist(
+        mesh, src, dst, w, num_vertices=num_vertices, symmetrize=True))
+    out["multigraph"] = _blocks(distribute_edgelist_chunks(mesh, unweighted,
+                                                           num_vertices=num_vertices))
+    out["multigraph_single_shot"] = _blocks(distribute_edgelist(mesh, src, dst,
+                                                                num_vertices=num_vertices))
+    mgg = distribute_edgelist_chunks(mesh, unweighted, num_vertices=num_vertices,
+                                     symmetrize=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        scores, iterations = mg_algos.mg_pagerank(mesh, mgg, max_iterations=20, tol=0.0)
+    out["pagerank"] = (_np(scores), iterations)
+    out["span_counts"] = dict(collections.Counter(
+        e.name for e in prof.events() if e.name.startswith("cgt/")))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        scores, iterations = mg_algos.mg_pagerank(mesh, mgg, max_iterations=100, tol=1e-4)
+    out["pagerank_tol"] = (_np(scores), iterations)
+    out["span_counts_tol"] = dict(collections.Counter(
+        e.name for e in prof.events() if e.name.startswith("cgt/")))
+    return out
+
+
 def run_broadcast_graph(rank: int) -> dict:
     """A graph through serialize -> deserialize -> broadcast_graph against
     distribute_graph of the graph itself: the rank's blocks, array by
