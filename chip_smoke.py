@@ -187,8 +187,8 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
 
 The line before the last is one JSON object with a "kernels" list (each
 kernel's launches_by_path names only the paths that count it; the SpMVs'
-"segments": K on the main path's graph, its launches and segment
-passes); the last
+"segments": K on the main path's graph, how many of its ranges are
+hypersparse, its launches, segment passes and hypersparse passes); the last
 line is {"ok": true, "device": {...}}. Without CUDA the script exits
 non-zero and prints no result.
 """
@@ -695,17 +695,24 @@ def small_graph_checks(seed: int) -> None:
 
 
 def segment_counts(adj, kernels) -> dict:
-    """K, the column segments the rule gives ``adj`` on this card, and
-    each SpMV's launches and segment passes since its counters were set
-    to 0; every call must have swept K ranges."""
+    """K, the column segments the rule gives ``adj`` on this card, how
+    many of them are hypersparse, and each SpMV's launches, segment passes
+    and hypersparse passes since its counters were set to 0; every call
+    must have swept K ranges, that many of them hypersparse."""
     from cugraph_tpu_torch.prims.cuda import spmv
 
-    k = -(-adj.num_minors // spmv.segment_width(adj, DEV))
-    out = {"k": k}
+    width = spmv.segment_width(adj, DEV)
+    k = -(-adj.num_minors // width)
+    hyper = sum(s.row_ids is not None for s in adj.segments.get(width, []))
+    out = {"k": k, "hypersparse": hyper}
     for name, fn in kernels.items():
         require(fn.segment_passes == k * fn.launches,
                 f"{name}: {fn.segment_passes} segment passes over {fn.launches} calls at K = {k}")
-        out[name] = {"launches": fn.launches, "segment_passes": fn.segment_passes}
+        require(fn.hypersparse_passes == hyper * fn.launches,
+                f"{name}: {fn.hypersparse_passes} hypersparse passes over {fn.launches} calls, "
+                f"{hyper} hypersparse ranges")
+        out[name] = {"launches": fn.launches, "segment_passes": fn.segment_passes,
+                     "hypersparse_passes": fn.hypersparse_passes}
     return out
 
 
@@ -717,6 +724,27 @@ def forced_segments(width: int):
 
     with tile_constant(spmv, "segment_width", lambda adj, device: width):
         yield
+
+
+# the forms of the column segments the checks force: SEGMENT_HYPERSPARSE_SHARE
+# 0 keeps every range dense, 2 makes every range after the first
+# hypersparse, None the rule
+SEGMENT_FORMS = {"dense": 0.0, "rule": None, "hypersparse": 2.0}
+
+
+@contextlib.contextmanager
+def forced_form(adj, share):
+    """Every SpMV over ``adj`` in the block sweeps column segments built at
+    SEGMENT_HYPERSPARSE_SHARE ``share`` (None: the rule's): ``adj``'s
+    segments are built anew inside the block, and dropped after it."""
+    from cugraph_tpu_torch.prims.cuda import spmv
+
+    adj.segments.clear()
+    try:
+        with tile_constant(spmv, "SEGMENT_HYPERSPARSE_SHARE", share):
+            yield
+    finally:
+        adj.segments.clear()
 
 
 def gapped_graph(seed: int, v: int = 5000, e: int = 60000, gap=(2000, 2500)):
@@ -736,11 +764,14 @@ def segment_checks(seed: int) -> None:
     """The column-segmented sweep at forced widths: K = 2, 3 (an uneven
     last range) and 4 on the small skewed graphs and the adversarial
     graphs (at the default tiles and at 1 item a thread), and ranges of
-    500 on a graph whose sources skip [2000, 2500) (a range with no edge):
-    spmv_sum within TOL_SUM_REL of float64, spmv_minplus bit-exact
-    (weighted, unweighted, BFS-shaped x), each relaunch bit-equal, one
-    launch and K segment passes a call; K = 1 the unsegmented sweep."""
-    from cugraph_tpu_torch.prims.cuda import _partition, spmv, spmv_minplus, spmv_sum
+    500 on a graph whose sources skip [2000, 2500) (a range with no edge),
+    each with every range dense, every range after the first hypersparse,
+    and the ranges the rule makes: spmv_sum within TOL_SUM_REL of float64,
+    spmv_minplus bit-exact (weighted, unweighted, BFS-shaped x) and
+    bit-equal to the K = 1 sweep, each relaunch bit-equal, one launch, K
+    segment passes and a pass for each hypersparse range a call; K = 1 the
+    unsegmented sweep."""
+    from cugraph_tpu_torch.prims.cuda import spmv, spmv_minplus, spmv_sum
 
     gen = torch.Generator().manual_seed(seed)
     tiles = (spmv.SUM_THREADS * spmv.SUM_ITEMS_PER_THREAD, spmv.SUM_THREADS)
@@ -752,6 +783,7 @@ def segment_checks(seed: int) -> None:
               ("adversarial unweighted", adversarial_graph(seed + 23, False, tiles),
                (spmv.SUM_ITEMS_PER_THREAD, 1)),
               ("gapped", gapped_graph(seed + 24), (spmv.SUM_ITEMS_PER_THREAD,))]
+    counters = (spmv_sum, spmv_minplus)
     out = {}
     for name, g, ipts in graphs:
         adj = g.csc()
@@ -759,31 +791,50 @@ def segment_checks(seed: int) -> None:
         x = torch.randn(v, generator=gen).to(DEV)
         ids = torch.arange(v, dtype=torch.float32, device=DEV)
         xb = torch.where(torch.rand(v, generator=gen).to(DEV) < 0.05, ids, float("inf"))
+        minplus = [lambda: spmv_minplus(adj, x), lambda: spmv_minplus(adj, x, use_weights=False),
+                   lambda: spmv_minplus(adj, xb, use_weights=False)]
+        with forced_segments(v):
+            k1 = [f() for f in minplus]
         widths = [v] + [-(-v // k) for k in (2, 3, 4)] + ([500] if name == "gapped" else [])
         done = []
         for width in widths:
-            segs = _partition.segments_for(adj, width) if width < v else []
-            k = max(len(segs), 1)
-            if name == "gapped" and width == 500:
-                require(segs[4].num_edges == 0, "the gapped graph's range [2000, 2500) is empty")
-            for ipt in ipts:
-                calls = (spmv_sum.launches, spmv_minplus.launches)
-                passes = (spmv_sum.segment_passes, spmv_minplus.segment_passes)
-                with forced_segments(width), tile_constant(spmv, "SUM_ITEMS_PER_THREAD", ipt):
-                    check_spmv_sum(adj, x)
-                    check_spmv_minplus(adj, x)
-                    check_spmv_minplus(adj, x, use_weights=False)
-                    check_spmv_minplus(adj, xb, use_weights=False)
-                require([spmv_sum.launches - calls[0], spmv_minplus.launches - calls[1]] == [2, 6],
-                        f"{name}: one launch a call")
-                require([spmv_sum.segment_passes - passes[0],
-                         spmv_minplus.segment_passes - passes[1]] == [2 * k, 6 * k],
-                        f"{name}: {k} segment passes a call at width {width}")
-            done.append([width, k, [s.num_edges for s in segs]])
+            forms = SEGMENT_FORMS.items() if width < v else [("dense", 0.0)]
+            for form, share in forms:
+                for ipt in ipts:
+                    calls = [fn.launches for fn in counters]
+                    passes = [fn.segment_passes for fn in counters]
+                    hyper_passes = [fn.hypersparse_passes for fn in counters]
+                    with (forced_form(adj, share), forced_segments(width),
+                          tile_constant(spmv, "SUM_ITEMS_PER_THREAD", ipt)):
+                        check_spmv_sum(adj, x)
+                        check_spmv_minplus(adj, x)
+                        check_spmv_minplus(adj, x, use_weights=False)
+                        check_spmv_minplus(adj, xb, use_weights=False)
+                        ys = [f() for f in minplus]
+                        sync()
+                        segs = adj.segments.get(width, [])
+                    k, hyper = max(len(segs), 1), sum(s.row_ids is not None for s in segs)
+                    require(all(torch.equal(a, b) for a, b in zip(ys, k1)),
+                            f"{name}: spmv_minplus at width {width} ({form}) differs from K = 1")
+                    require(form != "hypersparse" or hyper == k - 1,
+                            f"{name}: {hyper} of {k} ranges hypersparse at share 2")
+                    require(form != "dense" or hyper == 0, f"{name}: a range hypersparse at 0")
+                    if name == "gapped" and width == 500:
+                        require(segs[4].num_edges == 0, "the gapped graph's range [2000, 2500) "
+                                "is empty")
+                    require([fn.launches - c for fn, c in zip(counters, calls)] == [2, 9],
+                            f"{name}: one launch a call")
+                    require([fn.segment_passes - c for fn, c in zip(counters, passes)]
+                            == [2 * k, 9 * k], f"{name}: {k} segment passes a call at {width}")
+                    require([fn.hypersparse_passes - c for fn, c in zip(counters, hyper_passes)]
+                            == [2 * hyper, 9 * hyper],
+                            f"{name}: {hyper} hypersparse passes a call at width {width}")
+                done.append([width, form, k, hyper, [s.num_edges for s in segs],
+                             [s.num_rows for s in segs]])
         out[name] = done
-    log(f"column segments ([width, K, edges a range] by graph): {json.dumps(out)}; spmv_sum "
-        f"within {TOL_SUM_REL}, spmv_minplus bit-exact (weighted, unweighted, BFS x), each "
-        f"bit-equal on a second launch")
+    log(f"column segments ([width, form, K, hypersparse, edges a range, rows a range] by graph): "
+        f"{json.dumps(out)}; spmv_sum within {TOL_SUM_REL}, spmv_minplus bit-exact (weighted, "
+        f"unweighted, BFS x) and bit-equal to K = 1, each bit-equal on a second launch")
 
 
 def step_boundary_graph(seed: int, groups: int, k: int, rows: int = 6000):
@@ -848,9 +899,9 @@ def wrapper_host_split(adj, x, reps: int = 2000) -> dict:
     fn = build.load("spmv").cgt_spmv_minplus
 
     def arguments():
-        return (ptr(adj.offsets), ptr(adj.minors), None, ptr(x), ptr(tile_row), ptr(tile_edge),
-                buf.data_ptr() + 4 * v, buf.data_ptr(), n_tiles, spmv.SUM_ITEMS_PER_THREAD, 0,
-                stream_of(x.device))
+        return (ptr(adj.offsets), None, ptr(adj.minors), None, ptr(x), ptr(tile_row),
+                ptr(tile_edge), buf.data_ptr() + 4 * v, buf.data_ptr(), n_tiles,
+                spmv.SUM_ITEMS_PER_THREAD, 0, stream_of(x.device))
 
     args = arguments()
     parts = {
@@ -1139,6 +1190,7 @@ def main_path(scale: int, seed: int) -> dict:
     for k in counters.values():
         k.launches = 0
     spmv_sum.segment_passes = spmv_minplus.segment_passes = 0
+    spmv_sum.hypersparse_passes = spmv_minplus.hypersparse_passes = 0
 
     t = time.perf_counter()
     g = rmat_graph(scale, seed)
@@ -4483,7 +4535,9 @@ def main() -> int:
         if name == "spmm_rows":
             extra["out_block"] = tpath["mg"]["out_block"]
         if name in path["segments"]:
-            extra["segments"] = dict(k=path["segments"]["k"], **path["segments"][name])
+            extra["segments"] = dict(k=path["segments"]["k"],
+                                     hypersparse=path["segments"]["hypersparse"],
+                                     **path["segments"][name])
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             also_replaces=ALSO_REPLACES[name], launches=launches,

@@ -43,6 +43,18 @@
 // edges/s), where K = 2's 32 MB slices spill (6.10 ms) and K = 4 pays more
 // in rows than it gains in hits (4.96 ms).
 //
+// Hypersparse ranges (cuGraph's DCSR segments of 2D-partitioned blocks): a
+// row item costs about 4 ps whether or not the row has an edge in the
+// range, against 9-10 ps an edge. Where few rows have one (a Kron block of
+// 2^26 rows cut 12 ways: about 1 row in 7), the wrapper keeps a range after
+// the first over only those rows, their ids in row_ids (ascending) and
+// offsets compressed over them, so its merge path has n_rows + E_range
+// items, not V + E_range: 11.47 ms a sweep of that block at K = 12, where
+// the dense ranges took 14.14. The kernels then read local row r's id from row_ids where they
+// write y; null row_ids is the dense range, row r0 + r. The first range
+// stays dense, so it writes every row (the identity where the row has no
+// edge there) and a hypersparse range only ever combines into y.
+//
 // Design: edge-balanced tiles (merge path, Merrill & Garland, SC'16;
 // prims/cuda/_partition.py), one kernel body for both functions, templated
 // on the reduction (SumOp, MinPlusOp: identity, combine, per-edge value),
@@ -107,13 +119,15 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // rows r0 .. r1 - 1 end inside it, row r1 (if it has edges here) goes on.
 // Dynamic shared memory: row_end[256 * items_per_thread] (int, the local
 // edge index where each local row ends), then val[256 * items_per_thread].
+// The tile's nr + ne items fit its 256 * items_per_thread, so with row_ids
+// the ids of its nr rows go in val's slots past its ne edges.
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
-spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minors,
-                  const float* __restrict__ weights, const float* __restrict__ x,
-                  const int* __restrict__ tile_row, const int* __restrict__ tile_edge,
-                  float* __restrict__ y, float* __restrict__ carry, int items_per_thread,
-                  bool accumulate) {
+spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ row_ids,
+                  const int* __restrict__ minors, const float* __restrict__ weights,
+                  const float* __restrict__ x, const int* __restrict__ tile_row,
+                  const int* __restrict__ tile_edge, float* __restrict__ y,
+                  float* __restrict__ carry, int items_per_thread, bool accumulate) {
   extern __shared__ int smem[];
   __shared__ int run_row[kThreads];
   __shared__ float run_sum[kThreads];  // combined value of a warp's last run
@@ -125,11 +139,17 @@ spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minor
   const int r0 = __ldg(tile_row + tile), r1 = __ldg(tile_row + tile + 1);
   const int e0 = __ldg(tile_edge + tile), e1 = __ldg(tile_edge + tile + 1);
   const int nr = r1 - r0, ne = e1 - e0;
-  // row r0 began in an earlier tile (r0 < V for every tile)
+  // row r0 began in an earlier tile (r0 < the rows swept, for every tile)
   const bool head = __ldg(offsets + r0) < e0;
   // offsets, minors and weights stream past once (__ldcs: evict first), so
   // that they do not push the gathered x out of the L2
   for (int i = tid; i < nr; i += kThreads) row_end[i] = __ldcs(offsets + r0 + i + 1) - e0;
+  int* row_id = reinterpret_cast<int*>(val) + ne;
+  if (row_ids != nullptr) {
+    for (int i = tid; i < nr; i += kThreads) row_id[i] = __ldcs(row_ids + r0 + i);
+  }
+  // the row of y that local row r (< nr) writes
+  auto out_row = [&](int r) -> size_t { return row_ids != nullptr ? row_id[r] : r0 + r; };
   if (weights != nullptr) {
 #pragma unroll 4
     for (int i = tid; i < ne; i += kThreads)
@@ -160,7 +180,7 @@ spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minor
         first_row = r;
         first_acc = acc;
       } else {
-        put<Op>(y, r0 + r, acc, accumulate);
+        put<Op>(y, out_row(r), acc, accumulate);
       }
       acc = Op::identity();
       ++r;
@@ -213,7 +233,7 @@ spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minor
       sum = Op::combine(prev, first_acc);
     }
     if (first_row == 0 && head) carry[2 * static_cast<size_t>(tile)] = sum;
-    else put<Op>(y, r0 + first_row, sum, accumulate);
+    else put<Op>(y, out_row(first_row), sum, accumulate);
   }
   if (tid == kThreads - 1) {
     // the last thread's run is row r1 (local nr); its value, if the tile
@@ -227,10 +247,11 @@ spmv_tiles_kernel(const int* __restrict__ offsets, const int* __restrict__ minor
 // cuts row r = tile_row[t] where r began in tile t - 1 owns r: y[r] = slot 1
 // of tile t - 1 combined with slot 0 of tiles t .. last, in that order,
 // where last is the tile that holds r's end marker (position
-// offsets[r + 1] + r).
+// offsets[r + 1] + r). With row_ids, r is written to row_ids[r].
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
-spmv_fixup_kernel(const int* __restrict__ offsets, const int* __restrict__ tile_row,
+spmv_fixup_kernel(const int* __restrict__ offsets, const int* __restrict__ row_ids,
+                  const int* __restrict__ tile_row,
                   const int* __restrict__ tile_edge, const float* __restrict__ carry,
                   float* __restrict__ y, int num_tiles, long long items_per_tile,
                   bool accumulate) {
@@ -245,15 +266,15 @@ spmv_fixup_kernel(const int* __restrict__ offsets, const int* __restrict__ tile_
   float acc = __ldg(carry + 2 * static_cast<size_t>(t - 1) + 1);
 #pragma unroll 4
   for (long long tt = t; tt <= last; ++tt) acc = Op::combine(acc, __ldg(carry + 2 * tt));
-  put<Op>(y, r, acc, accumulate);
+  put<Op>(y, row_ids != nullptr ? __ldg(row_ids + r) : r, acc, accumulate);
 }
 
 // Both launches on the caller's stream: the tiles, then (with more than one
 // tile) the fix-up of the rows cut by a tile boundary.
 template <class Op>
-int launch(const int* offsets, const int* minors, const float* weights, const float* x,
-           const int* tile_row, const int* tile_edge, float* carry, float* y, int num_tiles,
-           int items_per_thread, bool accumulate, void* stream) {
+int launch(const int* offsets, const int* row_ids, const int* minors, const float* weights,
+           const float* x, const int* tile_row, const int* tile_edge, float* carry, float* y,
+           int num_tiles, int items_per_thread, bool accumulate, void* stream) {
   if (num_tiles > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int tile_items = kThreads * items_per_thread;
@@ -265,11 +286,13 @@ int launch(const int* offsets, const int* minors, const float* weights, const fl
       if (rc != cudaSuccess) return static_cast<int>(rc);
     }
     spmv_tiles_kernel<Op><<<num_tiles, kThreads, smem, s>>>(
-        offsets, minors, weights, x, tile_row, tile_edge, y, carry, items_per_thread, accumulate);
+        offsets, row_ids, minors, weights, x, tile_row, tile_edge, y, carry, items_per_thread,
+        accumulate);
     if (num_tiles > 1) {
       const unsigned blocks = (num_tiles - 1 + kThreads - 1) / kThreads;
-      spmv_fixup_kernel<Op><<<blocks, kThreads, 0, s>>>(offsets, tile_row, tile_edge, carry, y,
-                                                         num_tiles, tile_items, accumulate);
+      spmv_fixup_kernel<Op><<<blocks, kThreads, 0, s>>>(offsets, row_ids, tile_row, tile_edge,
+                                                         carry, y, num_tiles, tile_items,
+                                                         accumulate);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -277,24 +300,26 @@ int launch(const int* offsets, const int* minors, const float* weights, const fl
 
 }  // namespace
 
-// C interface, loaded with ctypes. weights may be null (unweighted). The
-// launches go on the caller's stream and do not synchronise; the return
-// value is cudaGetLastError() after them. tile_row / tile_edge (num_tiles +
-// 1 int32 each) are the merge-path plan for 256 * items_per_thread items a
-// tile; carry is (num_tiles, 2) f32 scratch. accumulate != 0 combines each
-// row into y (a later column segment) where 0 writes it.
-extern "C" int cgt_spmv_sum(const int* offsets, const int* minors, const float* weights,
-                            const float* x, const int* tile_row, const int* tile_edge,
-                            float* carry, float* y, int num_tiles, int items_per_thread,
-                            int accumulate, void* stream) {
-  return launch<SumOp>(offsets, minors, weights, x, tile_row, tile_edge, carry, y, num_tiles,
-                       items_per_thread, accumulate != 0, stream);
+// C interface, loaded with ctypes. weights may be null (unweighted); so
+// may row_ids (a dense range: offsets over every row of y). The launches go
+// on the caller's stream and do not synchronise; the return value is
+// cudaGetLastError() after them. tile_row / tile_edge (num_tiles + 1 int32
+// each) are the merge-path plan for 256 * items_per_thread items a tile;
+// carry is (num_tiles, 2) f32 scratch. accumulate != 0 combines each row
+// into y (a later column segment) where 0 writes it; with row_ids, rows
+// not listed are left as they are, so row_ids needs accumulate.
+extern "C" int cgt_spmv_sum(const int* offsets, const int* row_ids, const int* minors,
+                            const float* weights, const float* x, const int* tile_row,
+                            const int* tile_edge, float* carry, float* y, int num_tiles,
+                            int items_per_thread, int accumulate, void* stream) {
+  return launch<SumOp>(offsets, row_ids, minors, weights, x, tile_row, tile_edge, carry, y,
+                       num_tiles, items_per_thread, accumulate != 0, stream);
 }
 
-extern "C" int cgt_spmv_minplus(const int* offsets, const int* minors, const float* weights,
-                                const float* x, const int* tile_row, const int* tile_edge,
-                                float* carry, float* y, int num_tiles, int items_per_thread,
-                                int accumulate, void* stream) {
-  return launch<MinPlusOp>(offsets, minors, weights, x, tile_row, tile_edge, carry, y,
+extern "C" int cgt_spmv_minplus(const int* offsets, const int* row_ids, const int* minors,
+                                const float* weights, const float* x, const int* tile_row,
+                                const int* tile_edge, float* carry, float* y, int num_tiles,
+                                int items_per_thread, int accumulate, void* stream) {
+  return launch<MinPlusOp>(offsets, row_ids, minors, weights, x, tile_row, tile_edge, carry, y,
                            num_tiles, items_per_thread, accumulate != 0, stream);
 }

@@ -38,10 +38,11 @@ NVCC_FLAGS = (
 _VP, _INT, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "spmv": {
-        # offsets, minors, weights, x, tile_row, tile_edge, carry, y, tiles,
-        # items_per_thread, accumulate, stream (both)
-        "cgt_spmv_sum": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
-        "cgt_spmv_minplus": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+        # offsets, row_ids, minors, weights, x, tile_row, tile_edge, carry, y,
+        # tiles, items_per_thread, accumulate, stream (both)
+        "cgt_spmv_sum": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+        "cgt_spmv_minplus": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                             _VP],
     },
     "spmm_row": {
         # offsets, minors, weights, x, x_bf16, x elements, tile_row,

@@ -23,7 +23,11 @@ minors, each with its own CSC and plan, built at the first call and kept
 on the adjacency. The first range writes y, each later one combines into
 it, in range order; ``segment_passes`` counts the ranges swept, while
 ``launches`` still counts one a call. With K = 1 the call is the
-unsegmented sweep.
+unsegmented sweep. A later range in which few rows have an edge is
+hypersparse (``SEGMENT_HYPERSPARSE_SHARE``): its sweep walks only those
+rows; the first range stays dense and writes every row, so a row with no
+edge in any range reads 0 (sum) or +inf (min). ``hypersparse_passes``
+counts the hypersparse ranges swept.
 """
 
 from __future__ import annotations
@@ -54,6 +58,12 @@ SEGMENT_L2_SHARE = 0.43
 # at degree 3 (0.913 against 1.166 ms); at degree 2 K = 2 and K = 4 bracket
 # K = 1 (0.737 and 0.890 against 0.803)
 SEGMENT_MIN_DEGREE = 3
+# A column segment after the first sweeps only its rows with an edge
+# (hypersparse) where fewer than this share of the rows have one. Against
+# the dense range at K = 3 on 2^24 Urand rows, a range's sweep is 14.7%
+# faster at a share of 0.28, 2.3% at 0.74, and 0.6% slower at 0.86 (0.3%
+# at 0.93, 1.0% at GAP's Urand): the crossover is near 0.83 (PERF.md §6)
+SEGMENT_HYPERSPARSE_SHARE = 0.8
 
 
 def segment_count(num_minors: int, num_edges: int, num_majors: int, l2_bytes: int) -> int:
@@ -108,17 +118,21 @@ def spmv_minplus_reference(
 
 def _launch(
     kernel: str, adj: CompressedAdj, x: torch.Tensor, use_weights: bool
-) -> Tuple[torch.Tensor, int]:
+) -> Tuple[torch.Tensor, int, int]:
     """Check the operands, fetch the plans and launch ``cgt_<kernel>`` once
     a column segment, in range order; y and the (tiles, 2) carries are
-    views of one allocation, the carries shared by the ranges. Returns y
-    and the ranges swept."""
+    views of one allocation, the carries shared by the ranges. Returns y,
+    the ranges swept and how many of them were hypersparse."""
     check_operands(kernel, adj, x, _weights(adj, use_weights))
     if x.dim() != 1:
         raise ValueError(f"{kernel}: x must be 1-D, got shape {tuple(x.shape)}")
     ipt = SUM_ITEMS_PER_THREAD
     width = segment_width(adj, x.device)
-    sweeps = [adj] if width >= adj.num_minors else segments_for(adj, width)
+    if width >= adj.num_minors:
+        sweeps, row_ids = [adj], [None]
+    else:
+        sweeps = segments_for(adj, width, SEGMENT_HYPERSPARSE_SHARE)
+        row_ids = [s.row_ids for s in sweeps]
     plans = [tiles_for(s, SUM_THREADS * ipt) for s in sweeps]
     n_tiles = max(tile_row.numel() for tile_row, _ in plans) - 1
     v = adj.num_majors
@@ -126,14 +140,14 @@ def _launch(
     y = buf[:v]
     fn = getattr(build.load("spmv"), f"cgt_{kernel}")
     with on_device(x.device):
-        for k, (s, (tile_row, tile_edge)) in enumerate(zip(sweeps, plans)):
+        for k, (s, rows, (tile_row, tile_edge)) in enumerate(zip(sweeps, row_ids, plans)):
             rc = fn(
-                ptr(s.offsets), ptr(s.minors), ptr(_weights(s, use_weights)), ptr(x),
+                ptr(s.offsets), ptr(rows), ptr(s.minors), ptr(_weights(s, use_weights)), ptr(x),
                 ptr(tile_row), ptr(tile_edge), buf.data_ptr() + 4 * v, ptr(y),
                 tile_row.numel() - 1, ipt, k > 0, stream_of(x.device),
             )
             raise_on_error(kernel, rc)
-    return y, len(sweeps)
+    return y, len(sweeps), sum(rows is not None for rows in row_ids)
 
 
 @spanned("cgt/kernel.spmv_sum")
@@ -145,9 +159,10 @@ def spmv_sum(
     SpMV (``spmv.py:194``, ``pull_spmv`` 224 / 260)."""
     if x.device.type == "cpu":
         return spmv_sum_reference(adj, x, use_weights=use_weights)
-    y, passes = _launch("spmv_sum", adj, x, use_weights)
+    y, passes, hypersparse = _launch("spmv_sum", adj, x, use_weights)
     spmv_sum.launches += 1
     spmv_sum.segment_passes += passes
+    spmv_sum.hypersparse_passes += hypersparse
     return y
 
 
@@ -160,9 +175,10 @@ def spmv_minplus(
     (``spmv3.py:944``)."""
     if x.device.type == "cpu":
         return spmv_minplus_reference(adj, x, use_weights=use_weights)
-    y, passes = _launch("spmv_minplus", adj, x, use_weights)
+    y, passes, hypersparse = _launch("spmv_minplus", adj, x, use_weights)
     spmv_minplus.launches += 1
     spmv_minplus.segment_passes += passes
+    spmv_minplus.hypersparse_passes += hypersparse
     return y
 
 
@@ -170,3 +186,5 @@ spmv_sum.launches = 0
 spmv_minplus.launches = 0
 spmv_sum.segment_passes = 0
 spmv_minplus.segment_passes = 0
+spmv_sum.hypersparse_passes = 0
+spmv_minplus.hypersparse_passes = 0

@@ -15,7 +15,8 @@ the min with its +inf identity, reproduces the float64 row sums and row
 minima and writes every row exactly once; a row with no edges comes out
 as the identity; run once a column segment and combined in range order
 (the kernels' accumulate mode) it reproduces the unsegmented row reduce,
-every row written once a range. A numpy model of spmm_rows' narrow
+every row written once a range, dense ranges and hypersparse ones (their
+rows through their ids) alike. A numpy model of spmm_rows' narrow
 layout (its lane groups, steps, open row and segmented scan, in the
 kernel's order, fed to the same fix-up) writes every row once and matches
 the plain version.
@@ -26,7 +27,7 @@ import pytest
 import torch
 
 from cugraph_tpu_torch.core.csr import CompressedAdj
-from cugraph_tpu_torch.prims.cuda import _partition, spmm_row
+from cugraph_tpu_torch.prims.cuda import _partition, spmm_row, spmv
 
 
 def _offsets(degrees):
@@ -218,34 +219,70 @@ def test_min_rows_without_edges_are_inf(k):
     np.testing.assert_array_equal(y, _row_reduce(offsets, vals, "min"))
 
 
-@pytest.mark.parametrize("op", sorted(OPS))
-@pytest.mark.parametrize("seed,k,width", [(10, 64, 100), (11, 7, 130), (12, 1792, 57)])
-def test_segments_accumulate_every_row_once_a_range(seed, k, width, op):
-    """csrc/spmv.cu's accumulate mode: the tiles and fix-up run once a
-    column segment (its own offsets and plan), the first range writing y
-    and each later one combining into it; every row is written once a
-    range, and the result is the unsegmented row reduce (the min exactly)."""
+def _range_graph(seed):
+    """An adjacency on _adversarial_degrees with random minors (sorted
+    within each row), rows 0 .. 39 holding only minors below 100, and its
+    edge values."""
     deg = _adversarial_degrees(seed, hub=700)
-    offsets = _offsets(deg)
     e, v = int(deg.sum()), len(deg)
     rng = np.random.default_rng(seed)
     minors = rng.integers(0, v, e)
     minors[: deg[:40].sum()] %= 100  # rows whose edges all lie in the first range
-    vals = rng.normal(size=e)
-    ident, combine = OPS[op]
-    y = None
     majors = np.repeat(np.arange(v), deg)
-    for lo in range(0, v, width):
-        keep = (minors >= lo) & (minors < lo + width)
-        seg_offsets = _offsets(np.bincount(majors[keep], minlength=v))
-        part, writes = _kernel_model(seg_offsets, vals[keep], k, op)
-        assert (writes == 1).all()
-        y = part if y is None else combine(y, part)
-    want = _row_reduce(offsets, vals, op)
-    if op == "min":
-        np.testing.assert_array_equal(y, want)
-    else:
-        np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
+    minors = minors[np.lexsort((minors, majors))]
+    adj = CompressedAdj(_offsets(deg), torch.from_numpy(minors.astype(np.int32)),
+                        torch.from_numpy(majors.astype(np.int32)), None, v, v, e)
+    return adj, rng.normal(size=e)
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
+@pytest.mark.parametrize("seed,k,width", [(10, 64, 100), (11, 7, 130), (12, 1792, 57)])
+def test_segments_accumulate_every_row_once_a_range(seed, k, width, op):
+    """csrc/spmv.cu's accumulate mode: the tiles and fix-up run once a
+    column segment (its own offsets and plan), the first range (dense)
+    writing y and each later one combining into it in range order, a
+    hypersparse range into its rows through their ids. Every row a range
+    sweeps is written once, and the result is the unsegmented row reduce
+    (the min exactly), whatever the later ranges' forms: all dense, all
+    hypersparse, by the rule."""
+    adj, vals = _range_graph(seed)
+    _, combine = OPS[op]
+    minors = adj.minors.numpy()
+    want = _row_reduce(adj.offsets, vals, op)
+    for share in (0.0, 2.0, spmv.SEGMENT_HYPERSPARSE_SHARE):
+        segs = _partition.column_segments(adj, width, share)
+        assert segs[0].row_ids is None
+        assert share != 2.0 or all(s.row_ids is not None for s in segs[1:])
+        y = None
+        for seg in segs:
+            keep = (minors >= seg.lo) & (minors < seg.hi)
+            part, writes = _kernel_model(seg.offsets, vals[keep], k, op)
+            assert (writes == 1).all() and len(part) == seg.num_rows
+            rows = np.arange(adj.num_majors) if seg.row_ids is None else seg.row_ids.numpy()
+            if y is None:
+                y = part
+            else:
+                y[rows] = combine(y[rows], part)
+        if op == "min":
+            np.testing.assert_array_equal(y, want)
+        else:
+            np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("seed,k", PLANS)
+def test_hypersparse_plan_covers_its_rows_and_edges(seed, k):
+    """The plan of a hypersparse range, over its compacted offsets: n_rows +
+    E items, every row with an edge in the range, ending at (n_rows, E)."""
+    adj, _ = _range_graph(seed)
+    seg = _partition.column_segment(adj, 150, 300, 2.0)
+    n, e = seg.num_rows, seg.num_edges
+    assert seg.row_ids is not None and 0 < n < adj.num_majors
+    assert (np.diff(seg.offsets.numpy()) > 0).all()  # no empty row in the range
+    rows, edges = (t.numpy().astype(np.int64) for t in _partition.tiles_for(seg, k))
+    assert len(rows) == -(-(n + e) // k) + 1
+    assert (rows[0], edges[0], rows[-1], edges[-1]) == (0, 0, n, e)
+    size = np.diff(rows) + np.diff(edges)
+    assert (size[:-1] == k).all() and 0 < size[-1] <= k
 
 
 def test_rows_ending_on_tile_boundaries():

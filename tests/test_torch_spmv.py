@@ -14,12 +14,16 @@ within 1e-5 of each row's sum of |w * x|.
 
 Column segments (prims/cuda/_partition.py:column_segments): the plan cuts
 a CSC by its minors into ranges of a given width, each range's edges in
-the CSC's order with their weights and offsets of their own; the rule
-(spmv.segment_count) gives K = 1 while x fits its share of the L2 and
+the CSC's order with their weights and offsets of their own, over every
+major (dense) or, after the first range and below
+spmv.SEGMENT_HYPERSPARSE_SHARE of them with an edge in the range, over
+those alone (hypersparse, with their ids); the
+rule (spmv.segment_count) gives K = 1 while x fits its share of the L2 and
 ceil(x bytes / budget) above; the plain versions run range by range and
 combined in range order (+ for the sum, fmin for the min, the kernels'
-accumulate mode) give spmv_sum's result within f32 rounding and
-spmv_minplus' bit for bit.
+accumulate mode, the hypersparse ranges into their rows alone) give
+spmv_sum's result within f32 rounding and spmv_minplus' bit for bit,
+whatever the forms of the ranges.
 """
 
 import dataclasses
@@ -224,10 +228,33 @@ def test_per_v_transform_reduce_matches_jax(direction, op):
 
 # ----------------------------------------------------------- column segments
 
-# (graph of GRAPHS, or "gap": sources avoiding the minors [200, 300), width):
-# even ranges, an uneven last range, a range of one minor, an empty range
+# (graph of GRAPHS, "gap": sources avoiding the minors [200, 300), "kron": a
+# Graph500 Kronecker graph, "kron_w" the same weighted, or "star": one hub
+# joined both ways to every vertex, width): even ranges, an uneven last
+# range, a range of one minor, an empty range; ranges whose rows are mostly
+# empty (Kron's) and a first range whose every row has an edge (the star's)
 SEGMENT_CASES = [(0, 250), (0, 167), (1, 75), (1, 299), (2, 128), (2, 999), (4, 600),
-                 (4, 7), ("gap", 100), ("gap", 150)]
+                 (4, 7), ("gap", 100), ("gap", 150), ("kron", 128), ("kron", 341),
+                 ("kron_w", 100), ("star", 120), ("star", 1)]
+# the share of the rows a later range must have an edge in to stay dense: 0
+# keeps every range dense, 2 makes every range after the first hypersparse
+SHARES = [0.0, spmv.SEGMENT_HYPERSPARSE_SHARE, 2.0]
+
+
+def _kron_edges(rng, scale, edge_factor=16, abc=(0.57, 0.19, 0.19)):
+    """Graph500's Kronecker generator, ids permuted: (srcs, dsts)."""
+    n = edge_factor << scale
+    a, b, c = abc
+    srcs = np.zeros(n, np.int64)
+    dsts = np.zeros(n, np.int64)
+    for bit in range(scale):
+        r = rng.random(n)
+        down = r >= a + b  # the quadrants c and d
+        right = ((r >= a) & (r < a + b)) | (r >= a + b + c)  # b and d
+        srcs |= down.astype(np.int64) << bit
+        dsts |= right.astype(np.int64) << bit
+    perm = rng.permutation(1 << scale)
+    return perm[srcs], perm[dsts]
 
 
 def _segment_graph(case):
@@ -239,6 +266,19 @@ def _segment_graph(case):
         dsts = (rng.random(5000) ** 2 * (v - 50)).astype(np.int64)  # rows empty at the top
         wts = rng.normal(size=5000).astype(np.float32)
         return ct.from_edgelist(srcs, dsts, wts, num_vertices=v, device="cpu").csc()
+    if case in ("kron", "kron_w"):
+        rng = np.random.default_rng(22)
+        srcs, dsts = _kron_edges(rng, 10)
+        wts = rng.random(srcs.size).astype(np.float32) if case == "kron_w" else None
+        g = ct.from_edgelist(srcs, dsts, wts, num_vertices=1 << 10, symmetrize=True, device="cpu")
+        return g.csc()
+    if case == "star":
+        v = 500
+        others = np.arange(1, v)
+        srcs = np.concatenate([others, np.zeros(v - 1, np.int64)])
+        dsts = np.concatenate([np.zeros(v - 1, np.int64), others])
+        wts = np.random.default_rng(23).normal(size=srcs.size).astype(np.float32)
+        return ct.from_edgelist(srcs, dsts, wts, num_vertices=v, device="cpu").csc()
     v, e, skew, weighted = GRAPHS[case]
     srcs, dsts, wts, _ = _rand_graph(case, v, e, skew, weighted)
     return ct.from_edgelist(srcs, dsts, wts, num_vertices=v, device="cpu").csc()
@@ -249,82 +289,150 @@ def _majors(offsets):
     return torch.repeat_interleave(torch.arange(deg.numel(), dtype=torch.int32), deg)
 
 
+def _seg_majors(seg):
+    """The major of each of the range's edges, dense or hypersparse."""
+    local = _majors(seg.offsets)
+    return local if seg.row_ids is None else seg.row_ids[local.long()]
+
+
 def _as_adj(adj, seg):
+    """The range as an adjacency over the rows it sweeps."""
     return CompressedAdj(seg.offsets, seg.minors, _majors(seg.offsets), seg.weights,
-                         adj.num_majors, adj.num_minors, seg.num_edges)
+                         seg.num_rows, adj.num_minors, seg.num_edges)
 
 
-def _plain_by_segments(adj, x, width, reduce, use_weights=True):
+def _plain_by_segments(adj, x, segs, reduce, use_weights=True):
     """The plain version over each range, combined in range order as the
-    kernels' accumulate mode combines them."""
+    kernels' accumulate mode combines them: the first range (dense) writes
+    every row, each later one combines into the rows it sweeps."""
     plain = spmv_sum_reference if reduce == "sum" else spmv_minplus_reference
     combine = torch.add if reduce == "sum" else torch.fmin
     y = None
-    for seg in column_segments(adj, width):
+    for seg in segs:
         part = plain(_as_adj(adj, seg), x, use_weights=use_weights)
-        y = part if y is None else combine(y, part)
+        rows = torch.arange(adj.num_majors) if seg.row_ids is None else seg.row_ids.long()
+        if y is None:
+            y = part
+        else:
+            y[rows] = combine(y[rows], part)
     return y
 
 
 @pytest.mark.parametrize("case,width", SEGMENT_CASES)
 def test_segments_partition_the_edges(case, width):
     adj = _segment_graph(case)
-    segs = column_segments(adj, width)
     v, n = adj.num_majors, adj.num_minors
-    assert [(s.lo, s.hi) for s in segs] == [(lo, min(lo + width, n)) for lo in range(0, n, width)]
-    assert sum(s.num_edges for s in segs) == adj.num_edges
-    for s in segs:
-        keep = (adj.minors >= s.lo) & (adj.minors < s.hi)
-        assert s.offsets.dtype == s.minors.dtype == torch.int32
-        assert s.offsets.shape == (v + 1,) and int(s.offsets[0]) == 0
-        assert int(s.offsets[-1]) == s.num_edges == s.minors.numel() == int(keep.sum())
-        # the range's edges in the CSC's (major, minor) order, with their weights
-        assert torch.equal(s.minors, adj.minors[keep])
-        assert torch.equal(_majors(s.offsets), adj.majors[keep])
-        assert torch.equal(s.offsets[1:] - s.offsets[:-1],
-                           torch.bincount(adj.majors[keep].long(), minlength=v).int())
-        key = _majors(s.offsets).long() * n + s.minors.long()
-        assert bool((key[1:] >= key[:-1]).all())
-        if adj.weights is None:
-            assert s.weights is None
-        else:
-            assert torch.equal(s.weights, adj.weights[keep])
-    if case == "gap" and width == 100:  # the range [200, 300) holds no edge
-        assert (segs[2].lo, segs[2].hi, segs[2].num_edges) == (200, 300, 0)
+    for share in SHARES:
+        segs = column_segments(adj, width, share)
+        assert ([(s.lo, s.hi) for s in segs]
+                == [(lo, min(lo + width, n)) for lo in range(0, n, width)])
+        assert sum(s.num_edges for s in segs) == adj.num_edges
+        for i, s in enumerate(segs):
+            keep = (adj.minors >= s.lo) & (adj.minors < s.hi)
+            counts = torch.bincount(adj.majors[keep].long(), minlength=v)
+            nonempty = int((counts > 0).sum())
+            # the first range dense whatever its share
+            assert (s.row_ids is None) == (i == 0 or nonempty >= share * v)
+            assert s.offsets.dtype == s.minors.dtype == torch.int32
+            assert s.offsets.shape == (s.num_rows + 1,) and int(s.offsets[0]) == 0
+            if s.row_ids is None:
+                assert s.num_rows == v
+                assert torch.equal(s.offsets[1:] - s.offsets[:-1], counts.int())
+            else:  # exactly the majors with an edge here, ascending, each non-empty
+                assert s.row_ids.dtype == torch.int32 and s.num_rows == nonempty
+                assert torch.equal(s.row_ids.long(), torch.nonzero(counts).flatten())
+                assert torch.equal(s.offsets[1:] - s.offsets[:-1], counts[counts > 0].int())
+            assert int(s.offsets[-1]) == s.num_edges == s.minors.numel() == int(keep.sum())
+            # the range's edges in the CSC's (major, minor) order, with their weights
+            assert torch.equal(s.minors, adj.minors[keep])
+            assert torch.equal(_seg_majors(s), adj.majors[keep])
+            key = _seg_majors(s).long() * n + s.minors.long()
+            assert bool((key[1:] >= key[:-1]).all())
+            if adj.weights is None:
+                assert s.weights is None
+            else:
+                assert torch.equal(s.weights, adj.weights[keep])
+        # the ranges concatenated and put back in (major, minor) order are the CSC
+        majors = torch.cat([_seg_majors(s) for s in segs])
+        minors = torch.cat([s.minors for s in segs])
+        order = torch.sort(majors.long() * n + minors.long(), stable=True).indices
+        assert torch.equal(majors[order], adj.majors) and torch.equal(minors[order], adj.minors)
+        if adj.weights is not None:
+            assert torch.equal(torch.cat([s.weights for s in segs])[order], adj.weights)
+        if case == "gap" and width == 100:  # the range [200, 300) holds no edge
+            assert (segs[2].lo, segs[2].hi, segs[2].num_edges) == (200, 300, 0)
+            assert share == 0.0 or segs[2].num_rows == 0
 
 
 @pytest.mark.parametrize("reduce", ["sum", "min", "min_unweighted", "bfs"])
 @pytest.mark.parametrize("case,width", SEGMENT_CASES)
 def test_plain_by_segments_matches_unsegmented(case, width, reduce):
+    """Every form of the ranges, walked as the wrapper walks them, gives
+    the unsegmented result: 0 (sum) and +inf (min) exactly on the rows
+    with no edge in any range."""
     adj = _segment_graph(case)
     v = adj.num_minors
     rng = np.random.default_rng(31)
     x = torch.from_numpy(rng.normal(size=v).astype(np.float32))
-    if reduce == "sum":
-        y = _plain_by_segments(adj, x, width, "sum")
-        want = spmv_sum_reference(adj, x.double())
-        w = None if adj.weights is None else adj.weights.abs()
-        size = spmv_sum_reference(dataclasses.replace(adj, weights=w), x.double().abs())
-        assert bool(((y.double() - want).abs() <= 1e-5 * size).all())
-        assert bool((y[size == 0] == 0).all())
-        return
-    use_weights = reduce == "min"
-    if reduce == "bfs":  # a BFS sweep's x: the id in the frontier, +inf elsewhere
-        x = torch.where(torch.from_numpy(rng.random(v) < 0.1),
-                        torch.arange(v, dtype=torch.float32), float("inf"))
-    y = _plain_by_segments(adj, x, width, "min", use_weights)
-    want = spmv_minplus_reference(adj, x, use_weights=use_weights)
-    assert torch.equal(y, want)  # bit for bit, +inf pattern included
+    empty = (adj.offsets[1:] == adj.offsets[:-1]).numpy()
+    for share in SHARES:
+        segs = column_segments(adj, width, share)
+        if reduce == "sum":
+            y = _plain_by_segments(adj, x, segs, "sum")
+            want = spmv_sum_reference(adj, x.double())
+            w = None if adj.weights is None else adj.weights.abs()
+            size = spmv_sum_reference(dataclasses.replace(adj, weights=w), x.double().abs())
+            assert bool(((y.double() - want).abs() <= 1e-5 * size).all())
+            assert bool((y[size == 0] == 0).all())
+            assert bool((y[empty] == 0).all())
+            continue
+        use_weights = reduce == "min"
+        xm = x
+        if reduce == "bfs":  # a BFS sweep's x: the id in the frontier, +inf elsewhere
+            xm = torch.where(torch.from_numpy(np.random.default_rng(32).random(v) < 0.1),
+                             torch.arange(v, dtype=torch.float32), float("inf"))
+        y = _plain_by_segments(adj, xm, segs, "min", use_weights)
+        want = spmv_minplus_reference(adj, xm, use_weights=use_weights)
+        assert torch.equal(y, want)  # bit for bit, +inf pattern included
+        assert bool(torch.isposinf(y[empty]).all())
+
+
+@pytest.mark.parametrize("rows", ["all", "one", "below", "at"])
+def test_segment_form_follows_the_share(rows):
+    """A later range is hypersparse where fewer than
+    SEGMENT_HYPERSPARSE_SHARE of the majors have an edge in it, else
+    dense: of 40 majors, all of them, one, one fewer than the share and
+    the share itself. The first range stays dense with its one row."""
+    at = int(np.ceil(spmv.SEGMENT_HYPERSPARSE_SHARE * 40))
+    n = {"all": 40, "one": 1, "below": at - 1, "at": at}[rows]
+    dense = rows in ("all", "at")
+    srcs = np.concatenate([[3], np.full(n, 30)])  # minors 3 and 30
+    dsts = np.concatenate([[5], np.arange(n) * 40 // n])  # one row, then n distinct rows
+    adj = ct.from_edgelist(srcs, dsts, num_vertices=40, device="cpu").csc()
+    first, second = column_segments(adj, 20, spmv.SEGMENT_HYPERSPARSE_SHARE)
+    assert first.row_ids is None and (first.num_rows, first.num_edges) == (40, 1)
+    assert (second.row_ids is None) == dense
+    assert second.num_rows == (40 if dense else n) and second.num_edges == n
 
 
 def test_segments_cached_under_a_setup_span():
-    adj = _segment_graph(1)
-    segs = segments_for(adj, 100)
-    assert segments_for(adj, 100) is segs and segments_for(adj, 50) is not segs
+    """Built once a width, under a set-up span that counts the rows the
+    sweeps walk against K passes over every major, and the hypersparse
+    ranges."""
+    adj = _segment_graph("star")
+    share = spmv.SEGMENT_HYPERSPARSE_SHARE
+    segs = segments_for(adj, 100, share)
+    assert segments_for(adj, 100, share) is segs and segments_for(adj, 50, share) is not segs
     assert set(adj.segments) == {100, 50} and "segments" not in repr(adj)
-    assert sum(s["name"] == "cgt/setup.spmv_segments" for s in setup_spans()) >= 2
+    kept = [s for s in setup_spans() if s["name"] == "cgt/setup.spmv_segments"]
+    assert len(kept) >= 2
+    # the star at width 50: range 0 holds the hub's row and every edge out
+    # of vertex 0 (dense); each later range, the hub's row alone
+    assert kept[-1]["counters"] == {"rows_swept": 500 + 9, "rows_dense": 10 * 500,
+                                    "hypersparse_segments": 9}
+    assert [s.num_rows for s in adj.segments[50]] == [500] + [1] * 9
     with pytest.raises(ValueError):
-        column_segments(adj, 0)
+        column_segments(adj, 0, share)
 
 
 MIB = 1 << 20

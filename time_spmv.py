@@ -1,29 +1,43 @@
 """spmv_sum and spmv_minplus of the PyTorch port on an NVIDIA card, on the
 benchmark's scale-24 GAP graphs (port_bench/configs/), at forced counts K of
-column segments, for choosing the segment rule's constants and for
-comparing two trees of the repo on one card:
+column segments and forms of the segments, for choosing the segment rule's
+constants and for comparing two trees of the repo on one card:
 
     python3 time_spmv.py --save build/spmv_k1.pt
     python3 time_spmv.py --tree build/parent --ks 1 --against build/spmv_k1.pt
 
 ``--tree DIR`` imports cugraph_tpu_torch from DIR, a checkout of another
 commit, in place of this one (a tree without column segments runs K = 1
-only); the graphs, timers and checks are this checkout's. Phases:
+only, one without hypersparse segments the dense form only); the graphs,
+timers and checks are this checkout's. Phases:
 
 - the sweep: each graph of ``--graphs`` from ``SEED``, made and stored as
   the benchmark does (generator, symmetrize); then for each K of ``--ks``
-  (ranges of ceil(V / K) minors) the plan's one-time build, spmv_sum on a
-  PageRank-like x held within chip_smoke.TOL_SUM_REL of float64 and
-  spmv_minplus on a BFS-shaped x (10% of the ids, +inf elsewhere) bit-equal
-  to its plain version, each relaunched bit-equal, then the median of
-  single calls and the back-to-back time, and edges a second;
+  (ranges of ceil(V / K) minors) and, above K = 1, each form of
+  ``--forms`` (``dense``: every range over all the rows; ``hypersparse``:
+  every range after the first (which stays dense) over its rows with an
+  edge; ``rule``: the rule's forms) the segments' one-time
+  build, spmv_sum on a PageRank-like x held within chip_smoke.TOL_SUM_REL
+  of float64 and spmv_minplus on a BFS-shaped x (10% of the ids, +inf
+  elsewhere) bit-equal to its plain version and to the K = 1 sweep, each
+  relaunched bit-equal, then the median of single calls and the
+  back-to-back time, edges a second, and the rows the ranges walk;
   ``--save`` keeps the K = 1 results, ``--against`` reports whether they
   are bit-equal to saved ones.
 - ``--weighted``: the graphs carry weights in (0, 1], which both SpMVs
   read (spmv_minplus then takes the random x).
 - ``--degrees``: Urand graphs of 2^24 vertices and d x 2^24 tuples (one
-  direction, no symmetrizing), spmv_sum back to back at each K, for the
-  degree below which segments do not pay.
+  direction, no symmetrizing), spmv_sum back to back at each K and form,
+  for the degree below which segments do not pay and, with a range's
+  share of rows with an edge 1 - exp(-d / K), the share below which a
+  hypersparse range beats a dense one.
+- ``--block``: one card's block of ``kron27-mg.pagerank`` (GAP's Kron at
+  scale 27 on a 2 x 2 mesh): the edges of ``gap-kron-s27``, both
+  directions, whose destination lies in the ranges of mesh row 0 and
+  whose source lies in column span 0 (2^26 rows, 2^26 minors), each pair
+  once, as ``dist.mg_graph`` stores them; spmv_sum at the rule's K in
+  each form, checked and timed as above, with the bytes the segments
+  keep on the card.
 
 Prints the card's name and power limit, then one JSON line, also written
 to ``--out``. Needs CUDA.
@@ -45,12 +59,52 @@ REPS = 10  # timed calls of each measurement
 SEED = 7
 
 
+FORMS = ("dense", "hypersparse", "rule")
+
+
 def forced(spmv, width):
     """A block in which every sweep takes ranges of ``width`` minors; a
     tree without segments takes its one sweep."""
     if not hasattr(spmv, "segment_width"):
         return contextlib.nullcontext()
     return cs.forced_segments(width)
+
+
+def forms_of(spmv, k, wanted):
+    """The forms a tree can sweep at K: one at K = 1 or without hypersparse
+    segments."""
+    if k == 1 or not hasattr(spmv, "SEGMENT_HYPERSPARSE_SHARE"):
+        return ["dense"]
+    return wanted
+
+
+@contextlib.contextmanager
+def formed(spmv, adj, width, form):
+    """A block in which every sweep over ``adj`` takes ranges of ``width``
+    minors in ``form`` (FORMS), built anew inside the block."""
+    if not hasattr(spmv, "SEGMENT_HYPERSPARSE_SHARE"):
+        if hasattr(adj, "segments"):
+            adj.segments.clear()
+        with forced(spmv, width):
+            yield
+        return
+    share = {"dense": 0.0, "hypersparse": 2.0}.get(form)
+    with cs.forced_form(adj, share), forced(spmv, width):
+        yield
+
+
+def rows_walked(adj, width) -> int:
+    """The rows the sweeps at ``width`` walk: every major at K = 1."""
+    segs = getattr(adj, "segments", {}).get(width)
+    return adj.num_majors if not segs else sum(s.offsets.numel() - 1 for s in segs)
+
+
+def kept_bytes(adj, width) -> int:
+    """The bytes of the segments' offsets and row ids (their minors and
+    weights are the adjacency's, cut)."""
+    segs = getattr(adj, "segments", {}).get(width) or []
+    return sum(s.offsets.numel() * 4 + (0 if getattr(s, "row_ids", None) is None
+                                        else s.row_ids.numel() * 4) for s in segs)
 
 
 def card_graph(config: str, seed: int, weighted: bool = False):
@@ -78,7 +132,7 @@ def timings(fn) -> dict:
     return dict(ms=cs.median_ms(fn, REPS), back_to_back_ms=cs.back_to_back_ms(fn, REPS))
 
 
-def sweep(g, ks, saved, name) -> dict:
+def sweep(g, ks, forms, saved, name) -> dict:
     import torch
 
     from cugraph_tpu_torch.prims.cuda import spmv, spmv_minplus, spmv_minplus_reference
@@ -102,42 +156,44 @@ def sweep(g, ks, saved, name) -> dict:
         width = -(-v // k)
         if k > 1 and not hasattr(spmv, "segment_width"):
             continue
-        if hasattr(adj, "segments"):
-            adj.segments.clear()
-        with forced(spmv, width):
-            cs.sync()
-            t = time.perf_counter()
-            y = spmv_sum(adj, x)
-            cs.sync()
-            first_s = time.perf_counter() - t
-            cs.check_relaunch("spmv_sum", y, lambda: spmv_sum(adj, x))
-            _, rel = cs.sum_error(adj, y, x, spmv_sum_reference, ref_size=ref_size)
-            cs.require(rel <= cs.TOL_SUM_REL, f"{name} K={k}: spmv_sum error {rel}")
-            yb = spmv_minplus(adj, xb, use_weights=weighted)
-            cs.sync()
-            cs.require(torch.equal(yb, min_ref), f"{name} K={k}: spmv_minplus not bit-exact")
-            cs.check_relaunch("spmv_minplus", yb,
-                              lambda: spmv_minplus(adj, xb, use_weights=weighted))
-            row = dict(width=width, first_call_s=first_s, sum_rel_err=rel,
-                       sum=timings(lambda: spmv_sum(adj, x)),
-                       minplus=timings(lambda: spmv_minplus(adj, xb, use_weights=weighted)))
-        for op in ("sum", "minplus"):
-            row[op]["gedges_per_s"] = e / row[op]["back_to_back_ms"] / 1e6
-        if k == 1:
-            key = (name, "sum"), (name, "minplus")
-            if saved is not None and key[0] in saved:
-                row["bits_equal_against"] = bool(torch.equal(y.cpu(), saved[key[0]])
-                                                 and torch.equal(yb.cpu(), saved[key[1]]))
-            out["k1"] = {key[0]: y.cpu(), key[1]: yb.cpu()}
-        out[f"K={k}"] = row
-        cs.log(f"{name} K={k}: {json.dumps(row)}")
-        del y, yb
+        for form in forms_of(spmv, k, forms):
+            with formed(spmv, adj, width, form):
+                cs.sync()
+                t = time.perf_counter()
+                y = spmv_sum(adj, x)
+                cs.sync()
+                first_s = time.perf_counter() - t
+                cs.check_relaunch("spmv_sum", y, lambda: spmv_sum(adj, x))
+                _, rel = cs.sum_error(adj, y, x, spmv_sum_reference, ref_size=ref_size)
+                cs.require(rel <= cs.TOL_SUM_REL, f"{name} K={k} {form}: spmv_sum error {rel}")
+                yb = spmv_minplus(adj, xb, use_weights=weighted)
+                cs.sync()
+                cs.require(torch.equal(yb, min_ref),
+                           f"{name} K={k} {form}: spmv_minplus not bit-exact")
+                cs.check_relaunch("spmv_minplus", yb,
+                                  lambda: spmv_minplus(adj, xb, use_weights=weighted))
+                row = dict(width=width, form=form, rows=rows_walked(adj, width),
+                           segment_bytes=kept_bytes(adj, width), first_call_s=first_s,
+                           sum_rel_err=rel, sum=timings(lambda: spmv_sum(adj, x)),
+                           minplus=timings(lambda: spmv_minplus(adj, xb, use_weights=weighted)))
+            for op in ("sum", "minplus"):
+                row[op]["gedges_per_s"] = e / row[op]["back_to_back_ms"] / 1e6
+            if k == 1:
+                key = (name, "sum"), (name, "minplus")
+                if saved is not None and key[0] in saved:
+                    row["bits_equal_against"] = bool(torch.equal(y.cpu(), saved[key[0]])
+                                                     and torch.equal(yb.cpu(), saved[key[1]]))
+                out["k1"] = {key[0]: y.cpu(), key[1]: yb.cpu()}
+            label = f"K={k}" if k == 1 else f"K={k}.{form}"
+            out[label] = row
+            cs.log(f"{name} {label}: {json.dumps(row)}")
+            del y, yb
     if hasattr(adj, "segments"):
         adj.segments.clear()
     return out
 
 
-def degrees(ds, ks) -> dict:
+def degrees(ds, ks, forms) -> dict:
     import torch
 
     import cugraph_tpu_torch as ct
@@ -154,9 +210,12 @@ def degrees(ds, ks) -> dict:
         x = torch.rand(v, generator=gen, device=cs.DEV) / v
         row = {}
         for k in ks:
-            adj.segments.clear()
-            with forced(spmv, -(-v // k)):
-                row[f"K={k}"] = cs.back_to_back_ms(lambda: spmv_sum(adj, x), REPS)
+            width = -(-v // k)
+            for form in forms_of(spmv, k, forms):
+                with formed(spmv, adj, width, form):
+                    ms = cs.back_to_back_ms(lambda: spmv_sum(adj, x), REPS)
+                    row[f"K={k}" if k == 1 else f"K={k}.{form}"] = dict(
+                        ms=ms, rows=rows_walked(adj, width))
         row["rule_width"] = spmv.segment_width(adj, cs.DEV)
         out[f"d={d}"] = row
         cs.log(f"urand 2^24 degree {d}: back-to-back ms {json.dumps(row)}")
@@ -165,12 +224,81 @@ def degrees(ds, ks) -> dict:
     return out
 
 
+def card_block(cfg: dict, seed: int):
+    """Card (0, 0)'s in-block of the Kron configuration ``cfg`` on a 2 x 2
+    mesh (dist/partition.py), V = 2^scale: destinations in vertex ranges 0
+    and 2 of V / 4, sources in [0, V / 2); rows b * V / 4 + (dst - range
+    start), both directions of each tuple, each ordered pair once, sorted."""
+    import torch
+
+    from cugraph_tpu_torch.core.csr import CompressedAdj
+    from port_bench.gen import kronecker
+
+    half, vp = 1 << (int(cfg["scale"]) - 1), 1 << (int(cfg["scale"]) - 2)
+    keys = []
+    for src, dst in kronecker.edge_chunks(cfg, seed, cs.DEV):
+        for a, b in ((src, dst), (dst, src)):  # minor a (source), major b (destination)
+            q = b.div(vp, rounding_mode="floor")
+            keep = (a < half) & (q % 2 == 0)
+            row = (q[keep] // 2).to(torch.int64) * vp + (b[keep] % vp)
+            keys.append(row * half + a[keep].to(torch.int64))
+        del src, dst
+    key = torch.unique(torch.cat(keys))
+    del keys
+    majors = (key // half).to(torch.int32)
+    minors = (key % half).to(torch.int32)
+    del key
+    counts = torch.bincount(majors.to(torch.int64), minlength=half)
+    offsets = torch.zeros(half + 1, dtype=torch.int32, device=cs.DEV)
+    offsets[1:] = torch.cumsum(counts, 0)
+    torch.cuda.empty_cache()
+    return CompressedAdj(offsets, minors, majors, None, half, half, minors.numel())
+
+
+def block(forms) -> dict:
+    """spmv_sum on card_block at the rule's K, in each form."""
+    import torch
+
+    from cugraph_tpu_torch.prims.cuda import spmv, spmv_sum, spmv_sum_reference
+
+    with open("port_bench/configs/gap-kron-s27.json") as f:
+        cfg = json.load(f)
+    t = time.perf_counter()
+    adj = card_block(cfg, SEED)
+    cs.sync()
+    out = {"build_s": time.perf_counter() - t, "majors": adj.num_majors,
+           "minors": adj.num_minors, "edges": adj.num_edges}
+    width = spmv.segment_width(adj, cs.DEV)
+    k = -(-adj.num_minors // width)
+    x = torch.rand(adj.num_minors, generator=torch.Generator(device=cs.DEV).manual_seed(SEED),
+                   device=cs.DEV) / adj.num_minors
+    ref_size = cs.sum_reference(adj, x, spmv_sum_reference)
+    for form in forms_of(spmv, k, forms):
+        with formed(spmv, adj, width, form):
+            y = spmv_sum(adj, x)
+            cs.sync()
+            cs.check_relaunch("spmv_sum", y, lambda: spmv_sum(adj, x))
+            _, rel = cs.sum_error(adj, y, x, spmv_sum_reference, ref_size=ref_size)
+            cs.require(rel <= cs.TOL_SUM_REL, f"s27 block K={k} {form}: spmv_sum error {rel}")
+            row = dict(width=width, rows=rows_walked(adj, width),
+                       segment_bytes=kept_bytes(adj, width), sum_rel_err=rel,
+                       sum=timings(lambda: spmv_sum(adj, x)))
+            del y
+        row["sum"]["gedges_per_s"] = adj.num_edges / row["sum"]["back_to_back_ms"] / 1e6
+        out[f"K={k}.{form}"] = row
+        cs.log(f"s27 block K={k} {form}: {json.dumps(row)}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=None, help="import cugraph_tpu_torch from this checkout")
     ap.add_argument("--graphs", default="gap-urand-s24,gap-kron-s24")
     ap.add_argument("--ks", default="1,2,4,8,16")
+    ap.add_argument("--forms", default=",".join(FORMS), help="forms of the segments above K = 1")
     ap.add_argument("--degrees", default="", help="average degrees of the Urand phase")
+    ap.add_argument("--block", action="store_true", help="time one card's block of s27")
     ap.add_argument("--weighted", action="store_true")
     ap.add_argument("--save", default=None, help="torch.save the K = 1 results here")
     ap.add_argument("--against", default=None, help="compare with results saved by --save")
@@ -197,10 +325,11 @@ def main() -> int:
               "l2_bytes": torch.cuda.get_device_properties(0).L2_cache_size}
     saved = torch.load(args.against) if args.against else None
     ks = [int(k) for k in args.ks.split(",")]
+    forms = args.forms.split(",")
     keep = {}
     for name in filter(None, args.graphs.split(",")):
         g = card_graph(name, SEED, args.weighted)
-        res = sweep(g, ks, saved, name)
+        res = sweep(g, ks, forms, saved, name)
         keep.update(res.pop("k1", {}))
         result[name] = res
         del g
@@ -208,7 +337,9 @@ def main() -> int:
     if args.save:
         torch.save(keep, args.save)
     if args.degrees:
-        result["degrees"] = degrees([int(d) for d in args.degrees.split(",")], ks)
+        result["degrees"] = degrees([int(d) for d in args.degrees.split(",")], ks, forms)
+    if args.block:
+        result["block"] = block(forms)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f)
