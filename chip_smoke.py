@@ -14,11 +14,10 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    tile sizes; spmm_rows in its wide layout at F = 128, 101 (one float a
    load) and 200 (a partial second column pass), in its narrow layout's
    F, with x 4 bytes off alignment, and on graphs whose rows close a step
-   of the narrow layout's lane groups); the column-segmented SpMV at
-   forced widths (K = 2, 3 with an uneven last range, 4, and a range with
-   no edge) on the small and adversarial graphs, spmv_sum within
-   TOL_SUM_REL and spmv_minplus bit-exact, one launch and K segment passes
-   a call; and
+   of the narrow layout's lane groups); the column-segmented SpMV on
+   plans of forced widths (K = 2, 3 with an uneven last range, 4, and a
+   range with no edge) on the small and adversarial graphs, spmv_sum
+   within TOL_SUM_REL and spmv_minplus bit-exact; and
    at the main path's shapes: spmv_sum, spmv_minplus, spmm_rows (both
    modes, F = 128, 129 (the wide layout's scalar loads) and 40, and the
    narrow layout at F = 8, 16, 32, 10 in f32 and 8 in bf16), each kernel
@@ -187,8 +186,8 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
 
 The line before the last is one JSON object with a "kernels" list (each
 kernel's launches_by_path names only the paths that count it; the SpMVs'
-"segments": K on the main path's graph, how many of its ranges are
-hypersparse, its launches, segment passes and hypersparse passes); the last
+"segments": K of the main path's graph's plan and how many of its ranges
+are hypersparse); the last
 line is {"ok": true, "device": {...}}. Without CUDA the script exits
 non-zero and prints no result.
 """
@@ -386,58 +385,22 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median over ``reps`` launches, each between two CUDA events, after
-    one warm-up call: the card's time plus the host time the call spends
-    before its first launch."""
-    fn()
-    sync()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def back_to_back_ms(fn, reps: int) -> float:
-    """A call's time on the card alone: the median over 3 rounds of
-    ``reps`` back-to-back calls, each round between two CUDA events and
-    divided by ``reps``, after one warm-up call. The host enqueues the
-    next call while the card runs this one, so a call's host time shows
-    only where it exceeds the card's."""
-    fn()
-    sync()
-    times = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
 def back_to_back(kernel, library, reps) -> dict:
     """The kernel's wrapper and the library call, each by back_to_back_ms;
     ``ms`` less ``back_to_back_ms`` is about the host time of a call."""
-    return dict(back_to_back_ms=back_to_back_ms(kernel, reps),
-                library_back_to_back_ms=back_to_back_ms(library, reps))
+    from cugraph_tpu_torch.microbench import back_to_back_ms
+
+    return dict(back_to_back_ms=back_to_back_ms(kernel, reps, DEV),
+                library_back_to_back_ms=back_to_back_ms(library, reps, DEV))
 
 
 def plan_ms(adj, items: int) -> float:
     """The one-time cost of a merge-path plan (``merge_path_tiles`` on the
     card, no host read), timed on its own."""
+    from cugraph_tpu_torch.microbench import median_ms
     from cugraph_tpu_torch.prims.cuda._partition import merge_path_tiles
 
-    return median_ms(lambda: merge_path_tiles(adj.offsets, adj.num_edges, items), 5)
+    return median_ms(lambda: merge_path_tiles(adj.offsets, adj.num_edges, items), 5, DEV)
 
 
 @contextlib.contextmanager
@@ -522,26 +485,38 @@ def check_relaunch(name, y, fn) -> None:
     require(torch.equal(y, y2), f"{name}: two launches differ")
 
 
-def check_spmv_sum(adj, x) -> float:
+def check_spmv_sum(adj, x, plan=None) -> float:
+    """spmv_sum, or with ``plan`` a sweep of that plan, against float64."""
     from cugraph_tpu_torch.prims.cuda import spmv_sum, spmv_sum_reference
+    from cugraph_tpu_torch.prims.cuda.spmv import sweep
 
-    y = spmv_sum(adj, x)
+    def call():
+        return spmv_sum(adj, x) if plan is None else sweep("spmv_sum", plan, x, True)
+
+    y = call()
     sync()
-    check_relaunch("spmv_sum", y, lambda: spmv_sum(adj, x))
+    check_relaunch("spmv_sum", y, call)
     abs_err, rel = sum_error(adj, y, x, spmv_sum_reference)
     require(rel <= TOL_SUM_REL, f"spmv_sum relative error {rel} > {TOL_SUM_REL}")
     return abs_err
 
 
-def check_spmv_minplus(adj, x, use_weights=True) -> float:
+def check_spmv_minplus(adj, x, use_weights=True, plan=None) -> float:
+    """spmv_minplus, or with ``plan`` a sweep of that plan, bit-exact."""
     from cugraph_tpu_torch.prims.cuda import spmv_minplus, spmv_minplus_reference
+    from cugraph_tpu_torch.prims.cuda.spmv import sweep
 
-    y = spmv_minplus(adj, x, use_weights=use_weights)
+    def call():
+        if plan is None:
+            return spmv_minplus(adj, x, use_weights=use_weights)
+        return sweep("spmv_minplus", plan, x, use_weights)
+
+    y = call()
     ref = spmv_minplus_reference(adj, x, use_weights=use_weights)
     sync()
     require(torch.equal(torch.isinf(y), torch.isinf(ref)), "spmv_minplus +inf pattern differs")
     require(torch.equal(y, ref), "spmv_minplus is not bit-exact")
-    check_relaunch("spmv_minplus", y, lambda: spmv_minplus(adj, x, use_weights=use_weights))
+    check_relaunch("spmv_minplus", y, call)
     return 0.0
 
 
@@ -598,7 +573,7 @@ def unaligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def small_graph_checks(seed: int) -> None:
-    from cugraph_tpu_torch.prims.cuda import spmm_row, spmm_rows, spmv, spmv_minplus, spmv_sum
+    from cugraph_tpu_torch.prims.cuda import _partition, spmm_row, spmm_rows, spmv_minplus, spmv_sum
 
     layout = spmm_row.spmm_layout
     require(not any(layout(f).narrow for f in WIDE_CHECK_FS)
@@ -638,10 +613,10 @@ def small_graph_checks(seed: int) -> None:
         f"x 4 bytes off alignment F={list(UNALIGNED_CHECK_FS)}) ok")
 
     # the adversarial graph, at the default tiles and at small ones (the hub
-    # then spans thousands of tiles); spmm_rows' wide and narrow tiles
+    # then spans thousands of tiles): the SpMVs' own plan, and one of 1 item
+    # a thread; spmm_rows' wide and narrow tiles
     spmm_tiles = ((spmm_row.ITEMS_PER_TILE, spmm_row.NARROW_ITEMS_PER_TILE), (32, 64))
-    spmv_ipts = (spmv.SUM_ITEMS_PER_THREAD, 1)
-    spmv_tiles = tuple(spmv.SUM_THREADS * i for i in spmv_ipts)
+    spmv_tiles = tuple(_partition.SUM_THREADS * i for i in (_partition.SUM_ITEMS_PER_THREAD, 1))
     before = [k.launches for k in counters]
     for weighted in (True, False):
         g = adversarial_graph(seed + 10 + weighted, weighted,
@@ -651,12 +626,11 @@ def small_graph_checks(seed: int) -> None:
         frontier = torch.rand(g.num_vertices, generator=gen).to(DEV) < 0.05
         ids = torch.arange(g.num_vertices, dtype=torch.float32, device=DEV)
         xb = torch.where(frontier, ids, float("inf"))  # a BFS sweep's x
-        for ipt in spmv_ipts:
-            with tile_constant(spmv, "SUM_ITEMS_PER_THREAD", ipt):
-                check_spmv_sum(adj, x)
-                check_spmv_minplus(adj, x)
-                check_spmv_minplus(adj, x, use_weights=False)
-                check_spmv_minplus(adj, xb, use_weights=False)
+        for plan in (None, _partition.sweep_plan(adj, adj.num_minors, 0.0, 1)):
+            check_spmv_sum(adj, x, plan)
+            check_spmv_minplus(adj, x, plan=plan)
+            check_spmv_minplus(adj, x, use_weights=False, plan=plan)
+            check_spmv_minplus(adj, xb, use_weights=False, plan=plan)
         for f in spmm_fs:
             xf = torch.randn(g.num_vertices, f, generator=gen).to(DEV)
             for precision in ("f32", "bf16"):
@@ -665,8 +639,8 @@ def small_graph_checks(seed: int) -> None:
                             tile_constant(spmm_row, "NARROW_ITEMS_PER_TILE", narrow):
                         check_spmm_rows(adj, xf, precision)
     require(
-        [k.launches - b for k, b in zip(counters, before)] == [8, 24, n_spmm * 2],
-        "every adversarial-graph check must launch its kernel",
+        [k.launches - b for k, b in zip(counters, before)] == [4, 12, n_spmm * 2],
+        "every adversarial-graph check of the wrappers must launch its kernel",
     )
     log(f"adversarial graphs (V={g.num_vertices}, E={g.num_edges}, hub in-degree "
         f"{int(g.in_degrees().max())}): spmv_sum, spmv_minplus (weighted, unweighted, BFS "
@@ -694,57 +668,13 @@ def small_graph_checks(seed: int) -> None:
         f"(f32, bf16) ok, each bit-equal on a second launch")
 
 
-def segment_counts(adj, kernels) -> dict:
-    """K, the column segments the rule gives ``adj`` on this card, how
-    many of them are hypersparse, and each SpMV's launches, segment passes
-    and hypersparse passes since its counters were set to 0; every call
-    must have swept K ranges, that many of them hypersparse."""
-    from cugraph_tpu_torch.prims.cuda import spmv
+def segment_counts(adj) -> dict:
+    """K, the column segments of ``adj``'s plan on this card, and how many
+    of them are hypersparse."""
+    from cugraph_tpu_torch.prims.cuda._partition import plan_for
 
-    width = spmv.segment_width(adj, DEV)
-    k = -(-adj.num_minors // width)
-    hyper = sum(s.row_ids is not None for s in adj.segments.get(width, []))
-    out = {"k": k, "hypersparse": hyper}
-    for name, fn in kernels.items():
-        require(fn.segment_passes == k * fn.launches,
-                f"{name}: {fn.segment_passes} segment passes over {fn.launches} calls at K = {k}")
-        require(fn.hypersparse_passes == hyper * fn.launches,
-                f"{name}: {fn.hypersparse_passes} hypersparse passes over {fn.launches} calls, "
-                f"{hyper} hypersparse ranges")
-        out[name] = {"launches": fn.launches, "segment_passes": fn.segment_passes,
-                     "hypersparse_passes": fn.hypersparse_passes}
-    return out
-
-
-@contextlib.contextmanager
-def forced_segments(width: int):
-    """Every SpMV in the block sweeps column segments of ``width`` minors,
-    whatever the rule (``spmv.segment_width``) would give."""
-    from cugraph_tpu_torch.prims.cuda import spmv
-
-    with tile_constant(spmv, "segment_width", lambda adj, device: width):
-        yield
-
-
-# the forms of the column segments the checks force: SEGMENT_HYPERSPARSE_SHARE
-# 0 keeps every range dense, 2 makes every range after the first
-# hypersparse, None the rule
-SEGMENT_FORMS = {"dense": 0.0, "rule": None, "hypersparse": 2.0}
-
-
-@contextlib.contextmanager
-def forced_form(adj, share):
-    """Every SpMV over ``adj`` in the block sweeps column segments built at
-    SEGMENT_HYPERSPARSE_SHARE ``share`` (None: the rule's): ``adj``'s
-    segments are built anew inside the block, and dropped after it."""
-    from cugraph_tpu_torch.prims.cuda import spmv
-
-    adj.segments.clear()
-    try:
-        with tile_constant(spmv, "SEGMENT_HYPERSPARSE_SHARE", share):
-            yield
-    finally:
-        adj.segments.clear()
+    ranges = plan_for(adj).ranges
+    return {"k": len(ranges), "hypersparse": sum(r.row_ids is not None for r in ranges)}
 
 
 def gapped_graph(seed: int, v: int = 5000, e: int = 60000, gap=(2000, 2500)):
@@ -761,29 +691,30 @@ def gapped_graph(seed: int, v: int = 5000, e: int = 60000, gap=(2000, 2500)):
 
 
 def segment_checks(seed: int) -> None:
-    """The column-segmented sweep at forced widths: K = 2, 3 (an uneven
-    last range) and 4 on the small skewed graphs and the adversarial
-    graphs (at the default tiles and at 1 item a thread), and ranges of
-    500 on a graph whose sources skip [2000, 2500) (a range with no edge),
-    each with every range dense, every range after the first hypersparse,
-    and the ranges the rule makes: spmv_sum within TOL_SUM_REL of float64,
-    spmv_minplus bit-exact (weighted, unweighted, BFS-shaped x) and
-    bit-equal to the K = 1 sweep, each relaunch bit-equal, one launch, K
-    segment passes and a pass for each hypersparse range a call; K = 1 the
-    unsegmented sweep."""
-    from cugraph_tpu_torch.prims.cuda import spmv, spmv_minplus, spmv_sum
+    """The column-segmented sweep on plans of forced widths: K = 2, 3 (an
+    uneven last range) and 4 on the small skewed graphs and the
+    adversarial graphs (at the default tiles and at 1 item a thread), and
+    ranges of 500 on a graph whose sources skip [2000, 2500) (a range with
+    no edge), each with every range dense, every range after the first
+    hypersparse, and the ranges the rule's share makes: spmv_sum within
+    TOL_SUM_REL of float64, spmv_minplus bit-exact (weighted, unweighted,
+    BFS-shaped x) and bit-equal to the K = 1 sweep, each relaunch
+    bit-equal; K = 1 is the adjacency's own sweep."""
+    from cugraph_tpu_torch.prims.cuda import _partition
+    from cugraph_tpu_torch.prims.cuda.spmv import sweep
 
+    ipt = _partition.SUM_ITEMS_PER_THREAD
+    # by the share of the rows a later range must have an edge in to stay
+    # dense: 0 keeps every range dense, 2 makes every range after the
+    # first hypersparse
+    forms = {"dense": 0.0, "rule": _partition.SEGMENT_HYPERSPARSE_SHARE, "hypersparse": 2.0}
     gen = torch.Generator().manual_seed(seed)
-    tiles = (spmv.SUM_THREADS * spmv.SUM_ITEMS_PER_THREAD, spmv.SUM_THREADS)
-    graphs = [("skewed", skewed_graph(seed + 20, weighted=True), (spmv.SUM_ITEMS_PER_THREAD,)),
-              ("skewed unweighted", skewed_graph(seed + 21, weighted=False),
-               (spmv.SUM_ITEMS_PER_THREAD,)),
-              ("adversarial", adversarial_graph(seed + 22, True, tiles),
-               (spmv.SUM_ITEMS_PER_THREAD, 1)),
-              ("adversarial unweighted", adversarial_graph(seed + 23, False, tiles),
-               (spmv.SUM_ITEMS_PER_THREAD, 1)),
-              ("gapped", gapped_graph(seed + 24), (spmv.SUM_ITEMS_PER_THREAD,))]
-    counters = (spmv_sum, spmv_minplus)
+    tiles = (_partition.SUM_THREADS * ipt, _partition.SUM_THREADS)
+    graphs = [("skewed", skewed_graph(seed + 20, weighted=True), (ipt,)),
+              ("skewed unweighted", skewed_graph(seed + 21, weighted=False), (ipt,)),
+              ("adversarial", adversarial_graph(seed + 22, True, tiles), (ipt, 1)),
+              ("adversarial unweighted", adversarial_graph(seed + 23, False, tiles), (ipt, 1)),
+              ("gapped", gapped_graph(seed + 24), (ipt,))]
     out = {}
     for name, g, ipts in graphs:
         adj = g.csc()
@@ -791,46 +722,36 @@ def segment_checks(seed: int) -> None:
         x = torch.randn(v, generator=gen).to(DEV)
         ids = torch.arange(v, dtype=torch.float32, device=DEV)
         xb = torch.where(torch.rand(v, generator=gen).to(DEV) < 0.05, ids, float("inf"))
-        minplus = [lambda: spmv_minplus(adj, x), lambda: spmv_minplus(adj, x, use_weights=False),
-                   lambda: spmv_minplus(adj, xb, use_weights=False)]
-        with forced_segments(v):
-            k1 = [f() for f in minplus]
+
+        def minplus(plan):
+            return [sweep("spmv_minplus", plan, x, True), sweep("spmv_minplus", plan, x, False),
+                    sweep("spmv_minplus", plan, xb, False)]
+
+        k1 = minplus(_partition.sweep_plan(adj, v, 0.0, ipt))
         widths = [v] + [-(-v // k) for k in (2, 3, 4)] + ([500] if name == "gapped" else [])
         done = []
         for width in widths:
-            forms = SEGMENT_FORMS.items() if width < v else [("dense", 0.0)]
-            for form, share in forms:
-                for ipt in ipts:
-                    calls = [fn.launches for fn in counters]
-                    passes = [fn.segment_passes for fn in counters]
-                    hyper_passes = [fn.hypersparse_passes for fn in counters]
-                    with (forced_form(adj, share), forced_segments(width),
-                          tile_constant(spmv, "SUM_ITEMS_PER_THREAD", ipt)):
-                        check_spmv_sum(adj, x)
-                        check_spmv_minplus(adj, x)
-                        check_spmv_minplus(adj, x, use_weights=False)
-                        check_spmv_minplus(adj, xb, use_weights=False)
-                        ys = [f() for f in minplus]
-                        sync()
-                        segs = adj.segments.get(width, [])
-                    k, hyper = max(len(segs), 1), sum(s.row_ids is not None for s in segs)
+            for form, share in (forms.items() if width < v else [("dense", 0.0)]):
+                for i in ipts:
+                    plan = _partition.sweep_plan(adj, width, share, i)
+                    check_spmv_sum(adj, x, plan)
+                    check_spmv_minplus(adj, x, plan=plan)
+                    check_spmv_minplus(adj, x, use_weights=False, plan=plan)
+                    check_spmv_minplus(adj, xb, use_weights=False, plan=plan)
+                    ys = minplus(plan)
+                    sync()
                     require(all(torch.equal(a, b) for a, b in zip(ys, k1)),
                             f"{name}: spmv_minplus at width {width} ({form}) differs from K = 1")
-                    require(form != "hypersparse" or hyper == k - 1,
-                            f"{name}: {hyper} of {k} ranges hypersparse at share 2")
-                    require(form != "dense" or hyper == 0, f"{name}: a range hypersparse at 0")
-                    if name == "gapped" and width == 500:
-                        require(segs[4].num_edges == 0, "the gapped graph's range [2000, 2500) "
-                                "is empty")
-                    require([fn.launches - c for fn, c in zip(counters, calls)] == [2, 9],
-                            f"{name}: one launch a call")
-                    require([fn.segment_passes - c for fn, c in zip(counters, passes)]
-                            == [2 * k, 9 * k], f"{name}: {k} segment passes a call at {width}")
-                    require([fn.hypersparse_passes - c for fn, c in zip(counters, hyper_passes)]
-                            == [2 * hyper, 9 * hyper],
-                            f"{name}: {hyper} hypersparse passes a call at width {width}")
-                done.append([width, form, k, hyper, [s.num_edges for s in segs],
-                             [s.num_rows for s in segs]])
+                ranges = plan.ranges
+                k, hyper = len(ranges), sum(r.row_ids is not None for r in ranges)
+                require(form != "hypersparse" or hyper == k - 1,
+                        f"{name}: {hyper} of {k} ranges hypersparse at share 2")
+                require(form != "dense" or hyper == 0, f"{name}: a range hypersparse at 0")
+                if name == "gapped" and width == 500:
+                    require(ranges[4].num_edges == 0, "the gapped graph's range [2000, 2500) "
+                            "is empty")
+                done.append([width, form, k, hyper, [r.num_edges for r in ranges],
+                             [r.num_rows for r in ranges]])
         out[name] = done
     log(f"column segments ([width, form, K, hypersparse, edges a range, rows a range] by graph): "
         f"{json.dumps(out)}; spmv_sum within {TOL_SUM_REL}, spmv_minplus bit-exact (weighted, "
@@ -886,31 +807,29 @@ def wrapper_host_split(adj, x, reps: int = 2000) -> dict:
     """An unweighted spmv_minplus call's host time in µs, by part: each part
     alone, the median over ``reps`` calls of time.perf_counter around it,
     the card idle before each (a synchronise outside the timed span). The
-    parts are what the wrapper does in order; "two_empty" is the two
-    allocations it made before y and the carries shared one."""
-    from cugraph_tpu_torch.prims.cuda import build, spmv, spmv_minplus
+    parts are what the wrapper does in order, its library call that of
+    the plan's first range."""
+    from cugraph_tpu_torch.prims.cuda import build, spmv_minplus
     from cugraph_tpu_torch.prims.cuda._launch import check_operands, on_device, ptr, stream_of
-    from cugraph_tpu_torch.prims.cuda._partition import tiles_for
+    from cugraph_tpu_torch.prims.cuda._partition import plan_for
 
-    items = spmv.SUM_THREADS * spmv.SUM_ITEMS_PER_THREAD
-    tile_row, tile_edge = tiles_for(adj, items)
-    n_tiles, v = tile_row.numel() - 1, adj.num_majors
-    buf = torch.empty(v + 2 * n_tiles, device=DEV)
+    plan = plan_for(adj)
+    r, v = plan.ranges[0], adj.num_majors
+    buf = torch.empty(v + 2 * plan.n_tiles, device=DEV)
     fn = build.load("spmv").cgt_spmv_minplus
 
     def arguments():
-        return (ptr(adj.offsets), None, ptr(adj.minors), None, ptr(x), ptr(tile_row),
-                ptr(tile_edge), buf.data_ptr() + 4 * v, buf.data_ptr(), n_tiles,
-                spmv.SUM_ITEMS_PER_THREAD, 0, stream_of(x.device))
+        return (ptr(r.offsets), ptr(r.row_ids), ptr(r.minors), None, ptr(x), ptr(r.tile_row),
+                ptr(r.tile_edge), buf.data_ptr() + 4 * v, buf.data_ptr(),
+                r.tile_row.numel() - 1, plan.items_per_thread, 0, stream_of(x.device))
 
     args = arguments()
     parts = {
         "check_operands": lambda: check_operands("spmv_minplus", adj, x, None),
-        "tiles_for": lambda: tiles_for(adj, items),
-        "one_empty": lambda: torch.empty(v + 2 * n_tiles, device=DEV),
-        "two_empty": lambda: (torch.empty(v, device=DEV), torch.empty(2 * n_tiles, device=DEV)),
-        "on_device": lambda: on_device(x.device),
+        "plan_for": lambda: plan_for(adj),
+        "one_empty": lambda: torch.empty(v + 2 * plan.n_tiles, device=DEV),
         "load_library": lambda: getattr(build.load("spmv"), "cgt_spmv_minplus"),
+        "on_device": lambda: on_device(x.device),
         "stream_of": lambda: stream_of(x.device),
         "arguments": arguments,
         "ctypes_call": lambda: fn(*args),
@@ -926,7 +845,7 @@ def wrapper_host_split(adj, x, reps: int = 2000) -> dict:
             times.append(time.perf_counter() - t)
         out[name] = statistics.median(times) * 1e6
     sync()
-    out["parts_sum"] = sum(out[k] for k in parts if k not in ("two_empty", "wrapper", "stream_of"))
+    out["parts_sum"] = sum(out[k] for k in parts if k not in ("wrapper", "stream_of"))
     log(f"spmv_minplus wrapper host time, µs (median of {reps}, card idle): {json.dumps(out)}")
     return out
 
@@ -948,6 +867,7 @@ def sparse_csr(adj):
 def weighted_full_shape_kernels(g, seed: int) -> dict:
     """spmv_sum (kernel #11's function, and #3's) and spmv_minplus (#4's)
     on the weighted CSC at full shape: check, time, bound."""
+    from cugraph_tpu_torch.microbench import back_to_back_ms, median_ms
     from cugraph_tpu_torch.prims.cuda import (
         spmv_minplus,
         spmv_minplus_reference,
@@ -970,10 +890,10 @@ def weighted_full_shape_kernels(g, seed: int) -> dict:
     out["spmv_sum"] = dict(
         replaces="cugraph_tpu/prims/pallas/spmv.py:194",
         max_abs_err=err, tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
-        ms=median_ms(lambda: spmv_sum(adj, x), 20),
-        plain_ms=median_ms(lambda: spmv_sum_reference(adj, x), 5),
+        ms=median_ms(lambda: spmv_sum(adj, x), 20, DEV),
+        plain_ms=median_ms(lambda: spmv_sum_reference(adj, x), 5, DEV),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
+        library_ms=median_ms(lambda: torch.mv(lib_a, x), 20, DEV),
         **back_to_back(lambda: spmv_sum(adj, x), lambda: torch.mv(lib_a, x), 20),
     )
 
@@ -985,10 +905,10 @@ def weighted_full_shape_kernels(g, seed: int) -> dict:
     out["spmv_minplus"] = dict(
         replaces="cugraph_tpu/prims/pallas/spmv2.py:1675",
         max_abs_err=err, tol="bit-exact, +inf pattern equal",
-        ms=median_ms(lambda: spmv_minplus(adj, xd), 20),
-        plain_ms=median_ms(lambda: spmv_minplus_reference(adj, xd), 5),
+        ms=median_ms(lambda: spmv_minplus(adj, xd), 20, DEV),
+        plain_ms=median_ms(lambda: spmv_minplus_reference(adj, xd), 5, DEV),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(adj, xd), 20),
+        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(adj, xd), 20, DEV),
     )
     log(f"weighted full-shape kernels (V={v}, E={e}): checks ok")
     return out
@@ -997,12 +917,13 @@ def weighted_full_shape_kernels(g, seed: int) -> dict:
 def full_shape_kernels(g, seed: int) -> dict:
     """Each kernel at the main path's shapes: check, time, bound; the sum
     kernels also back to back, and the one-time cost of their tile plans."""
+    from cugraph_tpu_torch.microbench import back_to_back_ms, median_ms
     from cugraph_tpu_torch.prims.cuda import (
         spmm_row,
         spmm_rows,
         spmm_rows_reference,
+        _partition,
         spmv_minplus,
-        spmv,
         spmv_minplus_reference,
         spmv_sum,
         spmv_sum_reference,
@@ -1023,12 +944,12 @@ def full_shape_kernels(g, seed: int) -> dict:
     b_ms, b_by = bound(graph_bytes + 4 * n_src + 4 * v, e)
     out["spmv_sum"] = dict(
         max_abs_err=err, tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
-        ms=median_ms(lambda: spmv_sum(adj, x), 20),
-        plain_ms=median_ms(lambda: spmv_sum_reference(adj, x), 5),
+        ms=median_ms(lambda: spmv_sum(adj, x), 20, DEV),
+        plain_ms=median_ms(lambda: spmv_sum_reference(adj, x), 5, DEV),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
+        library_ms=median_ms(lambda: torch.mv(lib_a, x), 20, DEV),
         **back_to_back(lambda: spmv_sum(adj, x), lambda: torch.mv(lib_a, x), 20),
-        plan_ms=plan_ms(adj, spmv.SUM_THREADS * spmv.SUM_ITEMS_PER_THREAD),
+        plan_ms=plan_ms(adj, _partition.SUM_THREADS * _partition.SUM_ITEMS_PER_THREAD),
     )
 
     # spmv_minplus: a BFS sweep, x = id in the frontier, +inf elsewhere
@@ -1038,10 +959,10 @@ def full_shape_kernels(g, seed: int) -> dict:
     b_ms, b_by = bound(4 * (v + 1) + 4 * e + 4 * n_src + 4 * v, e)
     out["spmv_minplus"] = dict(
         max_abs_err=err, tol="bit-exact, +inf pattern equal",
-        ms=median_ms(lambda: spmv_minplus(adj, xb, use_weights=False), 20),
-        plain_ms=median_ms(lambda: spmv_minplus_reference(adj, xb, use_weights=False), 5),
+        ms=median_ms(lambda: spmv_minplus(adj, xb, use_weights=False), 20, DEV),
+        plain_ms=median_ms(lambda: spmv_minplus_reference(adj, xb, use_weights=False), 5, DEV),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(adj, xb, use_weights=False), 20),
+        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(adj, xb, use_weights=False), 20, DEV),
         host_us=wrapper_host_split(adj, xb),
     )
     del xb
@@ -1062,13 +983,13 @@ def full_shape_kernels(g, seed: int) -> dict:
     b_ms, b_by = bound(graph_bytes + 4 * f * n_src + 4 * f * v, 2 * e * f)
     out["spmm_rows"] = dict(
         max_abs_err=err_bf16, tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
-        ms=median_ms(lambda: spmm_rows(adj, xs, precision="bf16"), 10),
-        plain_ms=median_ms(lambda: spmm_rows_reference(adj, xs, precision="bf16"), 3),
+        ms=median_ms(lambda: spmm_rows(adj, xs, precision="bf16"), 10, DEV),
+        plain_ms=median_ms(lambda: spmm_rows_reference(adj, xs, precision="bf16"), 3, DEV),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(lambda: lib_a @ xs, 10),
+        library_ms=median_ms(lambda: lib_a @ xs, 10, DEV),
         **back_to_back(lambda: spmm_rows(adj, xs, precision="bf16"), lambda: lib_a @ xs, 10),
         plan_ms=plan_ms(adj, spmm_row.ITEMS_PER_TILE), mode="bf16",
-        f32_ms=median_ms(lambda: spmm_rows(adj, xs, precision="f32"), 10),
+        f32_ms=median_ms(lambda: spmm_rows(adj, xs, precision="f32"), 10, DEV),
         f32_max_abs_err=err_f32, f40_f32_max_abs_err=err_f40,
         f129_f32_max_abs_err=err_f129, f129_bf16_max_abs_err=err_f129_bf16,
     )
@@ -1082,6 +1003,7 @@ def narrow_full_shape(adj, graph_bytes: int, n_src: int, lib_a, gen) -> dict:
     """spmm_rows in the narrow layout at NARROW_FULL_SHAPES on the main
     graph's CSC: checked against float64 (a second launch bit-equal),
     timed single and back to back, bound, CSR @ X beside it."""
+    from cugraph_tpu_torch.microbench import median_ms
     from cugraph_tpu_torch.prims.cuda import spmm_row, spmm_rows, spmm_rows_reference
 
     v, e = adj.num_majors, adj.num_edges
@@ -1095,9 +1017,9 @@ def narrow_full_shape(adj, graph_bytes: int, n_src: int, lib_a, gen) -> dict:
         out[f"f{f}_{mode}"] = dict(
             f=f, mode=mode, layout=spmm_row.spmm_layout(f)._asdict(), max_abs_err=err,
             tol=f"rel {TOL_SUM_REL} of the row's sum of |w x| vs float64",
-            ms=median_ms(call, 20),
-            plain_ms=median_ms(lambda: spmm_rows_reference(adj, x, precision=mode), 3),
-            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(library, 20),
+            ms=median_ms(call, 20, DEV),
+            plain_ms=median_ms(lambda: spmm_rows_reference(adj, x, precision=mode), 3, DEV),
+            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(library, 20, DEV),
             **back_to_back(call, library, 20),
         )
         log(f"spmm_rows narrow F={f} {mode}: {json.dumps(out[f'f{f}_{mode}'])}")
@@ -1189,8 +1111,6 @@ def main_path(scale: int, seed: int) -> dict:
     seconds = {}
     for k in counters.values():
         k.launches = 0
-    spmv_sum.segment_passes = spmv_minplus.segment_passes = 0
-    spmv_sum.hypersparse_passes = spmv_minplus.hypersparse_passes = 0
 
     t = time.perf_counter()
     g = rmat_graph(scale, seed)
@@ -1219,7 +1139,7 @@ def main_path(scale: int, seed: int) -> dict:
     (pr, iters), (dist, pred), emb = results.values()
 
     launches = {name: k.launches for name, k in counters.items()}
-    segments = segment_counts(g.csc(), {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus})
+    segments = segment_counts(g.csc())
     log(f"main path seconds: {json.dumps(seconds)}")
     log(f"main path launches: {json.dumps(launches)}; column segments {json.dumps(segments)}")
     for name, n in launches.items():
@@ -1379,6 +1299,7 @@ def block_kernels(mesh, mgg, feats) -> dict:
     """Each kernel on the rank's block at the MG path's shapes: check
     against its plain version, time, bound, library yardstick."""
     from cugraph_tpu_torch.dist import mg_prims
+    from cugraph_tpu_torch.microbench import back_to_back_ms, median_ms
     from cugraph_tpu_torch.prims.cuda import (
         spmm_rows,
         spmm_rows_reference,
@@ -1398,28 +1319,28 @@ def block_kernels(mesh, mgg, feats) -> dict:
     b_ms, b_by = bound(4 * (rows + 1) + 4 * e + 4 * n_src + 4 * rows, e)
     out["spmv_sum"] = dict(
         max_abs_err=check_spmv_sum(blk, x),
-        ms=median_ms(lambda: spmv_sum(blk, x), 20),
-        plain_ms=median_ms(lambda: spmv_sum_reference(blk, x), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: torch.mv(lib_a, x), 20),
-        back_to_back_ms=back_to_back_ms(lambda: spmv_sum(blk, x), 20),
+        ms=median_ms(lambda: spmv_sum(blk, x), 20, DEV),
+        plain_ms=median_ms(lambda: spmv_sum_reference(blk, x), 5, DEV),
+        bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: torch.mv(lib_a, x), 20, DEV),
+        back_to_back_ms=back_to_back_ms(lambda: spmv_sum(blk, x), 20, DEV),
     )
     ids = torch.arange(cols, dtype=torch.float32, device=DEV)
     xb = torch.where(torch.rand(cols, generator=gen, device=DEV) < 0.1, ids, float("inf"))
     out["spmv_minplus"] = dict(
         max_abs_err=check_spmv_minplus(blk, xb, use_weights=False),
-        ms=median_ms(lambda: spmv_minplus(blk, xb, use_weights=False), 20),
-        plain_ms=median_ms(lambda: spmv_minplus_reference(blk, xb, use_weights=False), 5),
+        ms=median_ms(lambda: spmv_minplus(blk, xb, use_weights=False), 20, DEV),
+        plain_ms=median_ms(lambda: spmv_minplus_reference(blk, xb, use_weights=False), 5, DEV),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(blk, xb, use_weights=False), 20),
+        back_to_back_ms=back_to_back_ms(lambda: spmv_minplus(blk, xb, use_weights=False), 20, DEV),
     )
     x_span = mg_prims.gather_src_values(mesh, feats)
     f = x_span.shape[1]
     b_ms, b_by = bound(4 * (rows + 1) + 4 * e + 4 * f * n_src + 4 * f * rows, 2 * e * f)
     out["spmm_rows"] = dict(
         max_abs_err=check_spmm_rows(blk, x_span, "bf16"), mode="bf16",
-        ms=median_ms(lambda: spmm_rows(blk, x_span, precision="bf16", use_weights=False), 10),
-        plain_ms=median_ms(lambda: spmm_rows_reference(blk, x_span, precision="bf16"), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: lib_a @ x_span, 10),
+        ms=median_ms(lambda: spmm_rows(blk, x_span, precision="bf16", use_weights=False), 10, DEV),
+        plain_ms=median_ms(lambda: spmm_rows_reference(blk, x_span, precision="bf16"), 3, DEV),
+        bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: lib_a @ x_span, 10, DEV),
     )
     for m in out.values():
         m["block"] = dict(majors=rows, minors=cols, edges=e, span_sources=n_src)
@@ -1847,6 +1768,7 @@ def assemble_split(binned, chunk_src, chunk_dst, ch: int, out_rows: int, reps: i
     part's time ends when it returns, the card maybe still copying.
     Device µs per launch from torch.profiler; the whole call as
     ``median_ms`` and ``back_to_back_ms`` time it."""
+    from cugraph_tpu_torch.microbench import back_to_back_ms, median_ms
     from cugraph_tpu_torch.prims.cuda import assemble, assemble_chunks, build
 
     out_chunks, in_chunks = out_rows // ch, binned.shape[0] // ch
@@ -1882,7 +1804,7 @@ def assemble_split(binned, chunk_src, chunk_dst, ch: int, out_rows: int, reps: i
     _, device, _ = profiled(call, 50)
     out = dict(host_us=host,
                device_us={k[:60]: [count / 50, us / 50] for k, (count, us) in device.items()},
-               median_ms=median_ms(call, 200), back_to_back_ms=back_to_back_ms(call, 50))
+               median_ms=median_ms(call, 200, DEV), back_to_back_ms=back_to_back_ms(call, 50, DEV))
     log(f"assemble_chunks split: {json.dumps(out)}")
     return out
 
@@ -1912,6 +1834,7 @@ def scan_assemble_path(g, seed: int) -> dict:
     counters set to 0 just before and read just after; then each kernel
     against its plain version and float64, timed, bounded, and beside its
     library yardstick."""
+    from cugraph_tpu_torch.microbench import median_ms
     from cugraph_tpu_torch.prims.cuda import (
         assemble_chunks,
         assemble_chunks_reference,
@@ -1980,10 +1903,10 @@ def scan_assemble_path(g, seed: int) -> dict:
         errors=dict(errs, segment_sums_max_abs_err=seg_err, largest_prefix=top,
                     segment_sums_eps_of_prefixes=seg_ulps,
                     segment_tol=f"{TOL_SEGMENT_EPS} x 2^-24 of each segment's two prefixes"),
-        n=e, ms=median_ms(lambda: cumsum_flat(x), 20),
-        plain_ms=median_ms(lambda: cumsum_flat_reference(x), 20),
+        n=e, ms=median_ms(lambda: cumsum_flat(x), 20, DEV),
+        plain_ms=median_ms(lambda: cumsum_flat_reference(x), 20, DEV),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(lambda: torch.cumsum(x, 0), 20),
+        library_ms=median_ms(lambda: torch.cumsum(x, 0), 20, DEV),
         **back_to_back(lambda: cumsum_flat(x), lambda: torch.cumsum(x, 0), 20),
     )
 
@@ -2012,12 +1935,13 @@ def scan_assemble_path(g, seed: int) -> dict:
         max_abs_err=0.0, tol="bit-equal to the plain version; uncovered rows zero",
         shape=dict(binned_rows=rows, chunk_rows=ch, steps=n_steps, distinct_chunks=distinct,
                    out_rows=out_rows, part_fill=ASSEMBLE_PART_FILL),
-        ms=median_ms(lambda: assemble_chunks(binned, chunk_src, chunk_dst, ch, out_rows), 20),
+        ms=median_ms(lambda: assemble_chunks(binned, chunk_src, chunk_dst, ch, out_rows), 20, DEV),
         plain_ms=median_ms(
-            lambda: assemble_chunks_reference(binned, chunk_src, chunk_dst, ch, out_rows), 20),
+            lambda: assemble_chunks_reference(binned, chunk_src, chunk_dst, ch, out_rows), 20, DEV),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=median_ms(
-            lambda: lib_out.index_copy_(0, cd64, binned.view(-1, width).index_select(0, cs64)), 20),
+            lambda: lib_out.index_copy_(0, cd64, binned.view(-1, width).index_select(0, cs64)), 20,
+            DEV),
         **back_to_back(
             lambda: assemble_chunks(binned, chunk_src, chunk_dst, ch, out_rows),
             lambda: lib_out.index_copy_(0, cd64, binned.view(-1, width).index_select(0, cs64)), 20),
@@ -2215,10 +2139,10 @@ def probes_path(seed: int) -> dict:
         check_relaunch("stream_scale", y, lambda: pr.stream_scale(x, a))
         b_ms, b_by = bound(8 * x.numel(), x.numel())
         return dict(max_abs_err=0.0, rows=x.shape[0], **times(r),
-                    plain_ms=median_ms(lambda: pr.stream_scale_reference(x, a), 20),
+                    plain_ms=mb.median_ms(lambda: pr.stream_scale_reference(x, a), 20, DEV),
                     bound_ms=b_ms, bound_by=b_by,
-                    library_ms=median_ms(lambda: x.mul(a), 20),
-                    library_back_to_back_ms=back_to_back_ms(lambda: x.mul(a), 20))
+                    library_ms=mb.median_ms(lambda: x.mul(a), 20, DEV),
+                    library_back_to_back_ms=mb.back_to_back_ms(lambda: x.mul(a), 20, DEV))
 
     out["stream_scale"] = dict(
         copy_entry(inp["x"], mb.COPY_SCALE["k1_copy"], probe["k1_copy"]),
@@ -2238,11 +2162,11 @@ def probes_path(seed: int) -> dict:
         b_ms, b_by = bound(4 * e + distinct * row + e * row, 0)
         return dict(max_abs_err=0.0, table_rows=table.shape[0], dtype=str(table.dtype),
                     edges=e, distinct_rows=distinct, **times(r),
-                    plain_ms=median_ms(lambda: pr.gather_rows_reference(table, srcs), 20),
+                    plain_ms=mb.median_ms(lambda: pr.gather_rows_reference(table, srcs), 20, DEV),
                     bound_ms=b_ms, bound_by=b_by,
-                    library_ms=median_ms(lambda: table.index_select(0, ids64), 20),
-                    library_back_to_back_ms=back_to_back_ms(
-                        lambda: table.index_select(0, ids64), 20),
+                    library_ms=mb.median_ms(lambda: table.index_select(0, ids64), 20, DEV),
+                    library_back_to_back_ms=mb.back_to_back_ms(
+                        lambda: table.index_select(0, ids64), 20, DEV),
                     grows_per_s=e / r["kernel_b2b_ms"] / 1e6,
                     gbps=2 * e * row / r["kernel_b2b_ms"] / 1e6)
 
@@ -2277,7 +2201,7 @@ def probes_path(seed: int) -> dict:
         edges=e, windows=y.shape[0] // pr.WINDOW_ROWS, distinct_rows=distinct,
         relaunch_bit_equal=same_bits(pr.gather_window_sum(table, srcs, dstl), y),
         **times(probe["gather_window_sum"]),
-        plain_ms=median_ms(lambda: pr.gather_window_sum_reference(table, srcs, dstl), 20),
+        plain_ms=mb.median_ms(lambda: pr.gather_window_sum_reference(table, srcs, dstl), 20, DEV),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none")
 
     # multiwin_reduce: within the sum tolerance; index_add_ over the
@@ -2299,10 +2223,12 @@ def probes_path(seed: int) -> dict:
         max_abs_err=err, tol=f"{TOL_PROBE_REL} x sum|terms| + {TOL_PROBE_ABS} a slot "
         "(atomics add in no fixed order)",
         edges=n, windows=wstart.numel(), out_rows=rows, **times(probe["k6_multiwin_reduce"]),
-        plain_ms=median_ms(lambda: pr.multiwin_reduce_reference(wstart, vals, gdl, rows), 20),
+        plain_ms=mb.median_ms(lambda: pr.multiwin_reduce_reference(wstart, vals, gdl, rows), 20,
+                              DEV),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
-        index_add_over_keys_ms=median_ms(lambda: acc.index_add_(0, keys, flat_vals), 20),
-        index_add_over_keys_b2b_ms=back_to_back_ms(lambda: acc.index_add_(0, keys, flat_vals), 20))
+        index_add_over_keys_ms=mb.median_ms(lambda: acc.index_add_(0, keys, flat_vals), 20, DEV),
+        index_add_over_keys_b2b_ms=mb.back_to_back_ms(lambda: acc.index_add_(0, keys, flat_vals),
+                                                      20, DEV))
 
     # seg_scan_rows: bit-equal
     v, flags = inp["v"], inp["flags"]
@@ -2315,7 +2241,7 @@ def probes_path(seed: int) -> dict:
     out["seg_scan_rows"] = dict(
         max_abs_err=0.0, tol="bit-equal to the plain version (and on relaunch)", rows=v.shape[0],
         **times(probe["k8_seg_scan_reduce"]),
-        plain_ms=median_ms(lambda: pr.seg_scan_rows_reference(v, flags), 5),
+        plain_ms=mb.median_ms(lambda: pr.seg_scan_rows_reference(v, flags), 5, DEV),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none")
 
     g, s = out["gather_rows"], out["stream_scale"]
@@ -3610,6 +3536,7 @@ def mg_train_step(g, seed: int) -> dict:
     from cugraph_tpu_torch.dist import distribute_graph, mg_gnn
     from cugraph_tpu_torch.dist.mg_graph import shard_vertex_values
     from cugraph_tpu_torch.gnn import spmm_aggregate
+    from cugraph_tpu_torch.microbench import median_ms
     from cugraph_tpu_torch.prims.cuda import spmm_rows, spmm_rows_reference
 
     v = g.num_vertices
@@ -3674,9 +3601,9 @@ def mg_train_step(g, seed: int) -> dict:
                            2 * e * 128)
         out_block = dict(
             max_abs_err=check_spmm_rows(blk, dy, "bf16"), mode="bf16",
-            ms=median_ms(lambda: spmm_rows(blk, dy, precision="bf16"), 10),
-            plain_ms=median_ms(lambda: spmm_rows_reference(blk, dy, precision="bf16"), 3),
-            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: lib @ dy, 10),
+            ms=median_ms(lambda: spmm_rows(blk, dy, precision="bf16"), 10, DEV),
+            plain_ms=median_ms(lambda: spmm_rows_reference(blk, dy, precision="bf16"), 3, DEV),
+            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lambda: lib @ dy, 10, DEV),
             block=dict(majors=rows, minors=blk.num_minors, edges=e, needed_dy_rows=n_dst))
     res = dict(seconds=seconds, step_s=step_s, losses=losses, launches_by_step=launches,
                sg_loss=sg_loss.item(), loss_rel_err=loss_rel, update_rel_err=upd_err,
@@ -4534,10 +4461,8 @@ def main() -> int:
             extra["mg_block"] = mgp["block"][name]
         if name == "spmm_rows":
             extra["out_block"] = tpath["mg"]["out_block"]
-        if name in path["segments"]:
-            extra["segments"] = dict(k=path["segments"]["k"],
-                                     hypersparse=path["segments"]["hypersparse"],
-                                     **path["segments"][name])
+        if name in ("spmv_sum", "spmv_minplus"):
+            extra["segments"] = path["segments"]
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             also_replaces=ALSO_REPLACES[name], launches=launches,

@@ -38,14 +38,9 @@ class CompressedAdj:
     num_majors: int
     num_minors: int
     num_edges: int
-    # merge-path tile plans of the kernels, by items per tile, computed at
-    # first use (prims/cuda/_partition.py); not an argument, not compared
-    tile_plans: dict = dataclasses.field(
-        default_factory=dict, init=False, compare=False, repr=False
-    )
-    # the SpMVs' column segments, by range width, built at first use
-    # (prims/cuda/_partition.py); like tile_plans
-    segments: dict = dataclasses.field(
+    # the kernels' plans, built at first use; only prims/cuda/_partition.py
+    # reads or writes it. Not an argument, not compared
+    _plans: dict = dataclasses.field(
         default_factory=dict, init=False, compare=False, repr=False
     )
 

@@ -1,4 +1,4 @@
-"""The merge-path tile plan of spmv_sum, spmv_minplus and spmm_rows
+"""The merge-path tile plans of spmv_sum, spmv_minplus and spmm_rows
 (prims/cuda/_partition.py).
 
 The plan is plain torch and runs here; the kernels that read it run only
@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from cugraph_tpu_torch.core.csr import CompressedAdj
-from cugraph_tpu_torch.prims.cuda import _partition, spmm_row, spmv
+from cugraph_tpu_torch.prims.cuda import _partition, spmm_row
 
 
 def _offsets(degrees):
@@ -104,20 +104,30 @@ def test_diagonals_are_int64():
     assert (edges.long() >= 0).all() and (torch.diff(edges.long()) >= 0).all()
 
 
-def test_plan_is_cached_on_the_adjacency():
+def test_plan_is_cached_on_the_adjacency(monkeypatch):
+    """spmm_rows' tile plans and the SpMVs' plan live in the adjacency's
+    one cache: each built once, a tile plan a size."""
     deg = _adversarial_degrees(6)
     offsets = _offsets(deg)
     e = int(deg.sum())
     adj = CompressedAdj(offsets, torch.zeros(e, dtype=torch.int32), torch.zeros(e, dtype=torch.int32),
                         None, len(deg), len(deg), e)
+    monkeypatch.setattr(_partition, "_l2_bytes", lambda index: 50 << 20)
     a = _partition.tiles_for(adj, 64)
-    assert _partition.tiles_for(adj, 64) is a
-    assert _partition.tiles_for(adj, 128) is not a and set(adj.tile_plans) == {64, 128}
+    plan = _partition.plan_for(adj)
+    assert _partition.tiles_for(adj, 64) is a and _partition.plan_for(adj) is plan
+    b = _partition.tiles_for(adj, 128)
+    assert b is not a and _partition.tiles_for(adj, 128) is b
+    (r,) = plan.ranges  # one range: the adjacency's own offsets, its own tiles
+    assert r.offsets is adj.offsets
+    items = _partition.SUM_THREADS * _partition.SUM_ITEMS_PER_THREAD
+    assert torch.equal(r.tile_row, _partition.merge_path_tiles(offsets, e, items)[0])
     # the cache neither enters equality nor survives dataclasses.replace
     import dataclasses
 
     other = dataclasses.replace(adj, weights=None)
-    assert other.tile_plans == {} and "tile_plans" not in repr(adj)
+    assert other == adj and "_plans" not in repr(adj)
+    assert _partition.tiles_for(other, 64) is not a and _partition.plan_for(other) is not plan
     with pytest.raises(ValueError):
         _partition.merge_path_tiles(offsets, e, 0)
 
@@ -249,8 +259,8 @@ def test_segments_accumulate_every_row_once_a_range(seed, k, width, op):
     _, combine = OPS[op]
     minors = adj.minors.numpy()
     want = _row_reduce(adj.offsets, vals, op)
-    for share in (0.0, 2.0, spmv.SEGMENT_HYPERSPARSE_SHARE):
-        segs = _partition.column_segments(adj, width, share)
+    for share in (0.0, 2.0, _partition.SEGMENT_HYPERSPARSE_SHARE):
+        segs = _partition.sweep_plan(adj, width, share, 1).ranges
         assert segs[0].row_ids is None
         assert share != 2.0 or all(s.row_ids is not None for s in segs[1:])
         y = None
@@ -274,11 +284,13 @@ def test_hypersparse_plan_covers_its_rows_and_edges(seed, k):
     """The plan of a hypersparse range, over its compacted offsets: n_rows +
     E items, every row with an edge in the range, ending at (n_rows, E)."""
     adj, _ = _range_graph(seed)
-    seg = _partition.column_segment(adj, 150, 300, 2.0)
+    seg = _partition.sweep_plan(adj, 150, 2.0, 1).ranges[1]
     n, e = seg.num_rows, seg.num_edges
+    assert (seg.lo, seg.hi) == (150, 300)
     assert seg.row_ids is not None and 0 < n < adj.num_majors
     assert (np.diff(seg.offsets.numpy()) > 0).all()  # no empty row in the range
-    rows, edges = (t.numpy().astype(np.int64) for t in _partition.tiles_for(seg, k))
+    rows, edges = (t.numpy().astype(np.int64)
+                   for t in _partition.merge_path_tiles(seg.offsets, e, k))
     assert len(rows) == -(-(n + e) // k) + 1
     assert (rows[0], edges[0], rows[-1], edges[-1]) == (0, 0, n, e)
     size = np.diff(rows) + np.diff(edges)

@@ -12,21 +12,22 @@ The v1 windowed pull SpMV (``cugraph_tpu/prims/pallas/spmv.py``, kernel
 runs it, computes spmv_sum's function over the weighted CSC: they agree
 within 1e-5 of each row's sum of |w * x|.
 
-Column segments (prims/cuda/_partition.py:column_segments): the plan cuts
-a CSC by its minors into ranges of a given width, each range's edges in
-the CSC's order with their weights and offsets of their own, over every
-major (dense) or, after the first range and below
-spmv.SEGMENT_HYPERSPARSE_SHARE of them with an edge in the range, over
-those alone (hypersparse, with their ids); the
-rule (spmv.segment_count) gives K = 1 while x fits its share of the L2 and
-ceil(x bytes / budget) above; the plain versions run range by range and
-combined in range order (+ for the sum, fmin for the min, the kernels'
-accumulate mode, the hypersparse ranges into their rows alone) give
-spmv_sum's result within f32 rounding and spmv_minplus' bit for bit,
-whatever the forms of the ranges.
+Column segments (prims/cuda/_partition.py:sweep_plan): the plan cuts a
+CSC by its minors into ranges of a given width, each range's edges in the
+CSC's order with their weights and offsets and tiles of their own, over
+every major (dense) or, after the first range and below
+_partition.SEGMENT_HYPERSPARSE_SHARE of them with an edge in the range,
+over those alone (hypersparse, with their ids); one range is the CSC
+itself. The rule (_partition.segment_count, applied by plan_for) gives
+K = 1 while x fits its share of the L2 and ceil(x bytes / budget) above;
+the plain versions run range by range and combined in range order (+ for
+the sum, fmin for the min, the kernels' accumulate mode, the hypersparse
+ranges into their rows alone) give spmv_sum's result within f32 rounding
+and spmv_minplus' bit for bit, whatever the forms of the ranges.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -42,13 +43,13 @@ from cugraph_tpu.prims.pallas.spmv3 import TINY3, build_keyed_layout, keyed_spmv
 from cugraph_tpu_torch import prims as tprims
 from cugraph_tpu_torch.core.csr import CompressedAdj
 from cugraph_tpu_torch.prims.cuda import (
-    spmv,
+    _partition,
     spmv_minplus,
     spmv_minplus_reference,
     spmv_sum,
     spmv_sum_reference,
 )
-from cugraph_tpu_torch.prims.cuda._partition import column_segments, segments_for
+from cugraph_tpu_torch.prims.cuda._partition import plan_for, sweep_plan, tiles_for
 from cugraph_tpu_torch.utils.timer import setup_spans
 
 GRAPHS = [  # v, e, skew, weighted
@@ -238,7 +239,13 @@ SEGMENT_CASES = [(0, 250), (0, 167), (1, 75), (1, 299), (2, 128), (2, 999), (4, 
                  ("kron_w", 100), ("star", 120), ("star", 1)]
 # the share of the rows a later range must have an edge in to stay dense: 0
 # keeps every range dense, 2 makes every range after the first hypersparse
-SHARES = [0.0, spmv.SEGMENT_HYPERSPARSE_SHARE, 2.0]
+SHARES = [0.0, _partition.SEGMENT_HYPERSPARSE_SHARE, 2.0]
+IPT = _partition.SUM_ITEMS_PER_THREAD
+MIB = 1 << 20
+
+
+def _ranges(adj, width, share):
+    return sweep_plan(adj, width, share, IPT).ranges
 
 
 def _kron_edges(rng, scale, edge_factor=16, abc=(0.57, 0.19, 0.19)):
@@ -323,7 +330,7 @@ def test_segments_partition_the_edges(case, width):
     adj = _segment_graph(case)
     v, n = adj.num_majors, adj.num_minors
     for share in SHARES:
-        segs = column_segments(adj, width, share)
+        segs = _ranges(adj, width, share)
         assert ([(s.lo, s.hi) for s in segs]
                 == [(lo, min(lo + width, n)) for lo in range(0, n, width)])
         assert sum(s.num_edges for s in segs) == adj.num_edges
@@ -376,7 +383,7 @@ def test_plain_by_segments_matches_unsegmented(case, width, reduce):
     x = torch.from_numpy(rng.normal(size=v).astype(np.float32))
     empty = (adj.offsets[1:] == adj.offsets[:-1]).numpy()
     for share in SHARES:
-        segs = column_segments(adj, width, share)
+        segs = _ranges(adj, width, share)
         if reduce == "sum":
             y = _plain_by_segments(adj, x, segs, "sum")
             want = spmv_sum_reference(adj, x.double())
@@ -403,59 +410,126 @@ def test_segment_form_follows_the_share(rows):
     SEGMENT_HYPERSPARSE_SHARE of the majors have an edge in it, else
     dense: of 40 majors, all of them, one, one fewer than the share and
     the share itself. The first range stays dense with its one row."""
-    at = int(np.ceil(spmv.SEGMENT_HYPERSPARSE_SHARE * 40))
+    at = int(np.ceil(_partition.SEGMENT_HYPERSPARSE_SHARE * 40))
     n = {"all": 40, "one": 1, "below": at - 1, "at": at}[rows]
     dense = rows in ("all", "at")
     srcs = np.concatenate([[3], np.full(n, 30)])  # minors 3 and 30
     dsts = np.concatenate([[5], np.arange(n) * 40 // n])  # one row, then n distinct rows
     adj = ct.from_edgelist(srcs, dsts, num_vertices=40, device="cpu").csc()
-    first, second = column_segments(adj, 20, spmv.SEGMENT_HYPERSPARSE_SHARE)
+    first, second = _ranges(adj, 20, _partition.SEGMENT_HYPERSPARSE_SHARE)
     assert first.row_ids is None and (first.num_rows, first.num_edges) == (40, 1)
     assert (second.row_ids is None) == dense
     assert second.num_rows == (40 if dense else n) and second.num_edges == n
 
 
-def test_segments_cached_under_a_setup_span():
-    """Built once a width, under a set-up span that counts the rows the
-    sweeps walk against K passes over every major, and the hypersparse
-    ranges."""
+def _segment_spans_since(t0):
+    return [s for s in setup_spans()
+            if s["name"] == "cgt/setup.spmv_segments" and s["start_s"] >= t0]
+
+
+def test_segments_cached_under_a_setup_span(monkeypatch):
+    """The one cache of an adjacency: plan_for builds the rule's plan at
+    the first sweep, cutting its ranges under a set-up span that counts
+    the rows the sweeps walk against K passes over every major, and the
+    hypersparse ranges, and keeps it beside spmm_rows' tile plans; a
+    plan of a forced width (sweep_plan) is built anew, under its own span,
+    and kept nowhere."""
+    # an L2 that gives the star (x of 2,000 bytes, 998 edges) K = 10
+    monkeypatch.setattr(_partition, "SEGMENT_MIN_DEGREE", 1)
+    monkeypatch.setattr(_partition, "_l2_bytes", lambda index: 466)
     adj = _segment_graph("star")
-    share = spmv.SEGMENT_HYPERSPARSE_SHARE
-    segs = segments_for(adj, 100, share)
-    assert segments_for(adj, 100, share) is segs and segments_for(adj, 50, share) is not segs
-    assert set(adj.segments) == {100, 50} and "segments" not in repr(adj)
-    kept = [s for s in setup_spans() if s["name"] == "cgt/setup.spmv_segments"]
-    assert len(kept) >= 2
+    share = _partition.SEGMENT_HYPERSPARSE_SHARE
+    t0 = time.perf_counter()
+    plan = plan_for(adj)
+    assert plan_for(adj) is plan and len(_segment_spans_since(t0)) == 1
+    tiles = tiles_for(adj, 64)
+    assert tiles_for(adj, 64) is tiles and tiles_for(adj, 128) is not tiles
+    assert plan_for(adj) is plan and "_plans" not in repr(adj)
+    forced = sweep_plan(adj, 50, share, IPT)
+    assert forced is not plan and plan_for(adj) is plan
+    kept = _segment_spans_since(t0)
+    assert len(kept) == 2
     # the star at width 50: range 0 holds the hub's row and every edge out
     # of vertex 0 (dense); each later range, the hub's row alone
-    assert kept[-1]["counters"] == {"rows_swept": 500 + 9, "rows_dense": 10 * 500,
-                                    "hypersparse_segments": 9}
-    assert [s.num_rows for s in adj.segments[50]] == [500] + [1] * 9
+    for span_, p in zip(kept, (plan, forced)):
+        assert span_["counters"] == {"rows_swept": 500 + 9, "rows_dense": 10 * 500,
+                                     "hypersparse_segments": 9}
+        assert [r.num_rows for r in p.ranges] == [500] + [1] * 9
+        assert [(r.lo, r.hi) for r in p.ranges] == [(lo, lo + 50) for lo in range(0, 500, 50)]
+    # the cache neither enters equality nor survives dataclasses.replace
+    other = dataclasses.replace(adj)
+    assert other == adj and plan_for(other) is not plan
     with pytest.raises(ValueError):
-        column_segments(adj, 0, share)
+        sweep_plan(adj, 0, share, IPT)
 
 
-MIB = 1 << 20
+@pytest.mark.parametrize("extra", [0, 1, 1000])
+def test_one_range_plan_is_the_adjacency(extra):
+    """Where one range covers every minor (K = 1), the plan is one dense
+    range over the adjacency's own tensors, no copy, and cuts nothing
+    under the segments' span."""
+    adj = _segment_graph(0)
+    t0 = time.perf_counter()
+    plan = sweep_plan(adj, adj.num_minors + extra, 2.0, IPT)
+    (r,) = plan.ranges
+    assert (r.lo, r.hi, r.row_ids, r.num_rows, r.num_edges) == (
+        0, adj.num_minors, None, adj.num_majors, adj.num_edges)
+    for mine, own in ((r.offsets, adj.offsets), (r.minors, adj.minors), (r.weights, adj.weights)):
+        assert mine.data_ptr() == own.data_ptr()
+    assert not _segment_spans_since(t0)
+
+
+def test_rule_plan_of_the_graphs(monkeypatch):
+    """plan_for on an H100's 50 MiB L2: K = 1 (the adjacency itself) at
+    small graphs, and on an L2 cut to K = 3 at the same graph, ranges of
+    ceil(V / 3) minors, later ones by the rule's share."""
+    adj = _segment_graph(1)  # 300 vertices, 9,000 edges
+    monkeypatch.setattr(_partition, "_l2_bytes", lambda index: 50 * MIB)
+    (r,) = plan_for(adj).ranges
+    assert r.offsets.data_ptr() == adj.offsets.data_ptr()
+    monkeypatch.setattr(_partition, "_l2_bytes", lambda index: 931)  # a budget of 400 bytes
+    adj = _segment_graph(1)
+    plan = plan_for(adj)
+    assert [(r.lo, r.hi) for r in plan.ranges] == [(0, 100), (100, 200), (200, 300)]
+    assert plan.items_per_thread == IPT
+
+
+@pytest.mark.parametrize("ipt", [IPT, 1])
+@pytest.mark.parametrize("case,width", [(1, 75), ("kron", 128), ("star", 120)])
+def test_plan_tiles_and_carries(case, width, ipt):
+    """Each range carries the merge-path tiles of its own offsets at
+    SUM_THREADS * ipt items a tile, and n_tiles, the rows of the carries
+    the ranges share, is the most tiles of any range."""
+    adj = _segment_graph(case)
+    plan = sweep_plan(adj, width, _partition.SEGMENT_HYPERSPARSE_SHARE, ipt)
+    items = _partition.SUM_THREADS * ipt
+    assert plan.items_per_thread == ipt
+    for r in plan.ranges:
+        want = _partition.merge_path_tiles(r.offsets, r.num_edges, items)
+        assert torch.equal(r.tile_row, want[0]) and torch.equal(r.tile_edge, want[1])
+    assert plan.n_tiles == max(r.tile_row.numel() - 1 for r in plan.ranges)
+    assert plan.n_tiles == max(-(-(r.num_rows + r.num_edges) // items) for r in plan.ranges)
+
 
 
 @pytest.mark.parametrize("l2", [50 * MIB, 40 * MIB, 6 * MIB])
 def test_segment_count_rule(l2):
-    budget = int(l2 * spmv.SEGMENT_L2_SHARE)
+    budget = int(l2 * _partition.SEGMENT_L2_SHARE)
     at = budget // 4  # x of exactly the budget
-    dense = lambda n: spmv.SEGMENT_MIN_DEGREE * n  # noqa: E731
-    assert spmv.segment_count(at, dense(at), at, l2) == 1
-    assert spmv.segment_count(at - 1, dense(at), at, l2) == 1
+    dense = lambda n: _partition.SEGMENT_MIN_DEGREE * n  # noqa: E731
+    assert _partition.segment_count(at, dense(at), at, l2) == 1
+    assert _partition.segment_count(at - 1, dense(at), at, l2) == 1
     for n in (at + 1, 3 * at, 3 * at + 5, 10 * at):
-        k = spmv.segment_count(n, dense(n), n, l2)
+        k = _partition.segment_count(n, dense(n), n, l2)
         assert k == -(-4 * n // budget) and k >= 2
         # too sparse to pay for K passes over the rows
-        assert spmv.segment_count(n, dense(n) - 1, n, l2) == 1
-    assert spmv.segment_count(0, 0, 0, l2) == 1
+        assert _partition.segment_count(n, dense(n) - 1, n, l2) == 1
+    assert _partition.segment_count(0, 0, 0, l2) == 1
 
 
 def test_segment_count_on_the_graphs_in_use():
     """With an H100's 50 MiB L2: K = 1 at RMAT scale 21 (chip_smoke.py's
     graphs), K = 3 on the benchmark's scale-24 graphs of degree 32."""
     l2 = 50 * MIB
-    assert spmv.segment_count(1 << 21, 1 << 25, 1 << 21, l2) == 1
-    assert spmv.segment_count(1 << 24, 520_757_134, 1 << 24, l2) == 3
+    assert _partition.segment_count(1 << 21, 1 << 25, 1 << 21, l2) == 1
+    assert _partition.segment_count(1 << 24, 520_757_134, 1 << 24, l2) == 3

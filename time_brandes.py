@@ -7,8 +7,9 @@ descending degree), for comparing two trees of the repo on one card:
     python3 time_brandes.py --scale 21 --phases spmm,sampled,sage
 
 ``--tree DIR`` imports cugraph_tpu_torch from DIR, a checkout of another
-commit, in place of this one; the graphs, timers and checks are this
-checkout's chip_smoke.py's. ``--phases`` runs, in its order:
+commit, in place of this one; the graphs and checks are this checkout's
+chip_smoke.py's, the timers ``cugraph_tpu_torch.microbench``'s.
+``--phases`` runs, in its order:
 
 - ``exact``: betweenness and edge betweenness with k=None (every vertex a
   source) on the unweighted graph, each ``--repeats`` times after a first
@@ -96,21 +97,22 @@ def exact(g, args) -> dict:
 def spmm(g, args) -> dict:
     import torch
 
+    from cugraph_tpu_torch.microbench import back_to_back_ms, median_ms
     from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_sum
 
     adj = g.csc()
     lib_a = cs.sparse_csr(adj)
     gen = torch.Generator(device=cs.DEV).manual_seed(1)
     xs = torch.rand(g.num_vertices, generator=gen, device=cs.DEV)
-    out = {"spmv_sum": {"ms": cs.median_ms(lambda: spmv_sum(adj, xs), 20),
-                        "b2b_ms": cs.back_to_back_ms(lambda: spmv_sum(adj, xs), 20)}}
+    out = {"spmv_sum": {"ms": median_ms(lambda: spmv_sum(adj, xs), 20, cs.DEV),
+                        "b2b_ms": back_to_back_ms(lambda: spmv_sum(adj, xs), 20, cs.DEV)}}
     for f, mode in SPMM_SHAPES:
         x = torch.randn(g.num_vertices, f, generator=gen, device=cs.DEV)
         call = lambda: spmm_rows(adj, x, precision=mode)  # noqa: E731
         out[f"f{f}_{mode}"] = {
-            "max_abs_err": cs.check_spmm_rows(adj, x, mode), "ms": cs.median_ms(call, 20),
-            "b2b_ms": cs.back_to_back_ms(call, 20),
-            "library_ms": cs.median_ms(lambda: lib_a @ x, 20),
+            "max_abs_err": cs.check_spmm_rows(adj, x, mode), "ms": median_ms(call, 20, cs.DEV),
+            "b2b_ms": back_to_back_ms(call, 20, cs.DEV),
+            "library_ms": median_ms(lambda: lib_a @ x, 20, cs.DEV),
         }
     return out
 

@@ -7,16 +7,17 @@ constants and for comparing two trees of the repo on one card:
     python3 time_spmv.py --tree build/parent --ks 1 --against build/spmv_k1.pt
 
 ``--tree DIR`` imports cugraph_tpu_torch from DIR, a checkout of another
-commit, in place of this one (a tree without column segments runs K = 1
-only, one without hypersparse segments the dense form only); the graphs,
-timers and checks are this checkout's. Phases:
+commit that builds its sweeps by ``sweep_plan``, in place of this one; the
+graphs and checks are this checkout's. Each measurement sweeps a plan of
+``sweep_plan`` (``prims/cuda/spmv.py:sweep``), the form's ranges at K.
+Phases:
 
 - the sweep: each graph of ``--graphs`` from ``SEED``, made and stored as
   the benchmark does (generator, symmetrize); then for each K of ``--ks``
   (ranges of ceil(V / K) minors) and, above K = 1, each form of
   ``--forms`` (``dense``: every range over all the rows; ``hypersparse``:
   every range after the first (which stays dense) over its rows with an
-  edge; ``rule``: the rule's forms) the segments' one-time
+  edge; ``rule``: the rule's forms) the plan's one-time
   build, spmv_sum on a PageRank-like x held within chip_smoke.TOL_SUM_REL
   of float64 and spmv_minplus on a BFS-shaped x (10% of the ids, +inf
   elsewhere) bit-equal to its plain version and to the K = 1 sweep, each
@@ -44,7 +45,6 @@ to ``--out``. Needs CUDA.
 """
 
 import argparse
-import contextlib
 import importlib
 import json
 import os
@@ -57,54 +57,34 @@ import chip_smoke as cs
 
 REPS = 10  # timed calls of each measurement
 SEED = 7
+# the forms of the ranges, by the share of the rows a later range must
+# have an edge in to stay dense (None: the rule's)
+FORMS = {"dense": 0.0, "hypersparse": 2.0, "rule": None}
 
 
-FORMS = ("dense", "hypersparse", "rule")
+def plan_of(adj, k: int, form: str):
+    """The plan of ``adj`` in ranges of ceil(minors / k) in ``form``, at the
+    wrapper's items a thread."""
+    from cugraph_tpu_torch.prims.cuda import _partition
+
+    share = FORMS[form]
+    if share is None:
+        share = _partition.SEGMENT_HYPERSPARSE_SHARE
+    return _partition.sweep_plan(adj, -(-adj.num_minors // k), share,
+                                 _partition.SUM_ITEMS_PER_THREAD)
 
 
-def forced(spmv, width):
-    """A block in which every sweep takes ranges of ``width`` minors; a
-    tree without segments takes its one sweep."""
-    if not hasattr(spmv, "segment_width"):
-        return contextlib.nullcontext()
-    return cs.forced_segments(width)
+def rows_walked(plan) -> int:
+    return sum(r.num_rows for r in plan.ranges)
 
 
-def forms_of(spmv, k, wanted):
-    """The forms a tree can sweep at K: one at K = 1 or without hypersparse
-    segments."""
-    if k == 1 or not hasattr(spmv, "SEGMENT_HYPERSPARSE_SHARE"):
-        return ["dense"]
-    return wanted
-
-
-@contextlib.contextmanager
-def formed(spmv, adj, width, form):
-    """A block in which every sweep over ``adj`` takes ranges of ``width``
-    minors in ``form`` (FORMS), built anew inside the block."""
-    if not hasattr(spmv, "SEGMENT_HYPERSPARSE_SHARE"):
-        if hasattr(adj, "segments"):
-            adj.segments.clear()
-        with forced(spmv, width):
-            yield
-        return
-    share = {"dense": 0.0, "hypersparse": 2.0}.get(form)
-    with cs.forced_form(adj, share), forced(spmv, width):
-        yield
-
-
-def rows_walked(adj, width) -> int:
-    """The rows the sweeps at ``width`` walk: every major at K = 1."""
-    segs = getattr(adj, "segments", {}).get(width)
-    return adj.num_majors if not segs else sum(s.offsets.numel() - 1 for s in segs)
-
-
-def kept_bytes(adj, width) -> int:
-    """The bytes of the segments' offsets and row ids (their minors and
-    weights are the adjacency's, cut)."""
-    segs = getattr(adj, "segments", {}).get(width) or []
-    return sum(s.offsets.numel() * 4 + (0 if getattr(s, "row_ids", None) is None
-                                        else s.row_ids.numel() * 4) for s in segs)
+def kept_bytes(plan) -> int:
+    """The bytes of the ranges' offsets and row ids (their minors and
+    weights are the adjacency's, cut; one range is the adjacency)."""
+    if len(plan.ranges) == 1:
+        return 0
+    return sum(4 * r.offsets.numel() + (0 if r.row_ids is None else 4 * r.row_ids.numel())
+               for r in plan.ranges)
 
 
 def card_graph(config: str, seed: int, weighted: bool = False):
@@ -129,14 +109,17 @@ def card_graph(config: str, seed: int, weighted: bool = False):
 
 
 def timings(fn) -> dict:
-    return dict(ms=cs.median_ms(fn, REPS), back_to_back_ms=cs.back_to_back_ms(fn, REPS))
+    from cugraph_tpu_torch.microbench import back_to_back_ms, median_ms
+
+    return dict(ms=median_ms(fn, REPS, cs.DEV), back_to_back_ms=back_to_back_ms(fn, REPS, cs.DEV))
 
 
 def sweep(g, ks, forms, saved, name) -> dict:
     import torch
 
-    from cugraph_tpu_torch.prims.cuda import spmv, spmv_minplus, spmv_minplus_reference
-    from cugraph_tpu_torch.prims.cuda import spmv_sum, spmv_sum_reference
+    from cugraph_tpu_torch.prims.cuda import spmv_minplus_reference, spmv_sum_reference
+    from cugraph_tpu_torch.prims.cuda._partition import plan_for
+    from cugraph_tpu_torch.prims.cuda.spmv import sweep as run
 
     adj = g.csc()
     v, e = adj.num_minors, adj.num_edges
@@ -149,33 +132,32 @@ def sweep(g, ks, forms, saved, name) -> dict:
         xb = x
     ref_size = cs.sum_reference(adj, x, spmv_sum_reference)
     min_ref = spmv_minplus_reference(adj, xb, use_weights=weighted)
-    out = {"vertices": v, "edges": e}
-    if hasattr(spmv, "segment_width"):
-        out["rule_width"] = spmv.segment_width(adj, cs.DEV)
+    out = {"vertices": v, "edges": e, "rule_k": len(plan_for(adj).ranges)}
     for k in ks:
-        width = -(-v // k)
-        if k > 1 and not hasattr(spmv, "segment_width"):
-            continue
-        for form in forms_of(spmv, k, forms):
-            with formed(spmv, adj, width, form):
-                cs.sync()
-                t = time.perf_counter()
-                y = spmv_sum(adj, x)
-                cs.sync()
-                first_s = time.perf_counter() - t
-                cs.check_relaunch("spmv_sum", y, lambda: spmv_sum(adj, x))
-                _, rel = cs.sum_error(adj, y, x, spmv_sum_reference, ref_size=ref_size)
-                cs.require(rel <= cs.TOL_SUM_REL, f"{name} K={k} {form}: spmv_sum error {rel}")
-                yb = spmv_minplus(adj, xb, use_weights=weighted)
-                cs.sync()
-                cs.require(torch.equal(yb, min_ref),
-                           f"{name} K={k} {form}: spmv_minplus not bit-exact")
-                cs.check_relaunch("spmv_minplus", yb,
-                                  lambda: spmv_minplus(adj, xb, use_weights=weighted))
-                row = dict(width=width, form=form, rows=rows_walked(adj, width),
-                           segment_bytes=kept_bytes(adj, width), first_call_s=first_s,
-                           sum_rel_err=rel, sum=timings(lambda: spmv_sum(adj, x)),
-                           minplus=timings(lambda: spmv_minplus(adj, xb, use_weights=weighted)))
+        for form in forms if k > 1 else ["dense"]:
+            cs.sync()
+            t = time.perf_counter()
+            plan = plan_of(adj, k, form)
+
+            def sum_call():
+                return run("spmv_sum", plan, x, True)
+
+            def min_call():
+                return run("spmv_minplus", plan, xb, weighted)
+
+            y = sum_call()
+            cs.sync()
+            first_s = time.perf_counter() - t
+            cs.check_relaunch("spmv_sum", y, sum_call)
+            _, rel = cs.sum_error(adj, y, x, spmv_sum_reference, ref_size=ref_size)
+            cs.require(rel <= cs.TOL_SUM_REL, f"{name} K={k} {form}: spmv_sum error {rel}")
+            yb = min_call()
+            cs.sync()
+            cs.require(torch.equal(yb, min_ref), f"{name} K={k} {form}: spmv_minplus not bit-exact")
+            cs.check_relaunch("spmv_minplus", yb, min_call)
+            row = dict(k=len(plan.ranges), form=form, rows=rows_walked(plan),
+                       segment_bytes=kept_bytes(plan), first_call_s=first_s, sum_rel_err=rel,
+                       sum=timings(sum_call), minplus=timings(min_call))
             for op in ("sum", "minplus"):
                 row[op]["gedges_per_s"] = e / row[op]["back_to_back_ms"] / 1e6
             if k == 1:
@@ -187,9 +169,7 @@ def sweep(g, ks, forms, saved, name) -> dict:
             label = f"K={k}" if k == 1 else f"K={k}.{form}"
             out[label] = row
             cs.log(f"{name} {label}: {json.dumps(row)}")
-            del y, yb
-    if hasattr(adj, "segments"):
-        adj.segments.clear()
+            del y, yb, plan
     return out
 
 
@@ -197,7 +177,9 @@ def degrees(ds, ks, forms) -> dict:
     import torch
 
     import cugraph_tpu_torch as ct
-    from cugraph_tpu_torch.prims.cuda import spmv, spmv_sum
+    from cugraph_tpu_torch.microbench import back_to_back_ms
+    from cugraph_tpu_torch.prims.cuda._partition import plan_for
+    from cugraph_tpu_torch.prims.cuda.spmv import sweep as run
 
     v = 1 << 24
     out = {}
@@ -210,13 +192,12 @@ def degrees(ds, ks, forms) -> dict:
         x = torch.rand(v, generator=gen, device=cs.DEV) / v
         row = {}
         for k in ks:
-            width = -(-v // k)
-            for form in forms_of(spmv, k, forms):
-                with formed(spmv, adj, width, form):
-                    ms = cs.back_to_back_ms(lambda: spmv_sum(adj, x), REPS)
-                    row[f"K={k}" if k == 1 else f"K={k}.{form}"] = dict(
-                        ms=ms, rows=rows_walked(adj, width))
-        row["rule_width"] = spmv.segment_width(adj, cs.DEV)
+            for form in forms if k > 1 else ["dense"]:
+                plan = plan_of(adj, k, form)
+                ms = back_to_back_ms(lambda: run("spmv_sum", plan, x, True), REPS, cs.DEV)
+                row[f"K={k}" if k == 1 else f"K={k}.{form}"] = dict(ms=ms, rows=rows_walked(plan))
+                del plan
+        row["rule_k"] = len(plan_for(adj).ranges)
         out[f"d={d}"] = row
         cs.log(f"urand 2^24 degree {d}: back-to-back ms {json.dumps(row)}")
         del adj, x
@@ -259,7 +240,9 @@ def block(forms) -> dict:
     """spmv_sum on card_block at the rule's K, in each form."""
     import torch
 
-    from cugraph_tpu_torch.prims.cuda import spmv, spmv_sum, spmv_sum_reference
+    from cugraph_tpu_torch.prims.cuda import spmv_sum_reference
+    from cugraph_tpu_torch.prims.cuda._partition import plan_for
+    from cugraph_tpu_torch.prims.cuda.spmv import sweep as run
 
     with open("port_bench/configs/gap-kron-s27.json") as f:
         cfg = json.load(f)
@@ -268,22 +251,24 @@ def block(forms) -> dict:
     cs.sync()
     out = {"build_s": time.perf_counter() - t, "majors": adj.num_majors,
            "minors": adj.num_minors, "edges": adj.num_edges}
-    width = spmv.segment_width(adj, cs.DEV)
-    k = -(-adj.num_minors // width)
+    k = len(plan_for(adj).ranges)
     x = torch.rand(adj.num_minors, generator=torch.Generator(device=cs.DEV).manual_seed(SEED),
                    device=cs.DEV) / adj.num_minors
     ref_size = cs.sum_reference(adj, x, spmv_sum_reference)
-    for form in forms_of(spmv, k, forms):
-        with formed(spmv, adj, width, form):
-            y = spmv_sum(adj, x)
-            cs.sync()
-            cs.check_relaunch("spmv_sum", y, lambda: spmv_sum(adj, x))
-            _, rel = cs.sum_error(adj, y, x, spmv_sum_reference, ref_size=ref_size)
-            cs.require(rel <= cs.TOL_SUM_REL, f"s27 block K={k} {form}: spmv_sum error {rel}")
-            row = dict(width=width, rows=rows_walked(adj, width),
-                       segment_bytes=kept_bytes(adj, width), sum_rel_err=rel,
-                       sum=timings(lambda: spmv_sum(adj, x)))
-            del y
+    for form in forms:
+        plan = plan_of(adj, k, form)
+
+        def call():
+            return run("spmv_sum", plan, x, True)
+
+        y = call()
+        cs.sync()
+        cs.check_relaunch("spmv_sum", y, call)
+        _, rel = cs.sum_error(adj, y, x, spmv_sum_reference, ref_size=ref_size)
+        cs.require(rel <= cs.TOL_SUM_REL, f"s27 block K={k} {form}: spmv_sum error {rel}")
+        row = dict(rows=rows_walked(plan), segment_bytes=kept_bytes(plan), sum_rel_err=rel,
+                   sum=timings(call))
+        del y, plan
         row["sum"]["gedges_per_s"] = adj.num_edges / row["sum"]["back_to_back_ms"] / 1e6
         out[f"K={k}.{form}"] = row
         cs.log(f"s27 block K={k} {form}: {json.dumps(row)}")
@@ -296,7 +281,7 @@ def main() -> int:
     ap.add_argument("--tree", default=None, help="import cugraph_tpu_torch from this checkout")
     ap.add_argument("--graphs", default="gap-urand-s24,gap-kron-s24")
     ap.add_argument("--ks", default="1,2,4,8,16")
-    ap.add_argument("--forms", default=",".join(FORMS), help="forms of the segments above K = 1")
+    ap.add_argument("--forms", default=",".join(FORMS), help="forms of the ranges above K = 1")
     ap.add_argument("--degrees", default="", help="average degrees of the Urand phase")
     ap.add_argument("--block", action="store_true", help="time one card's block of s27")
     ap.add_argument("--weighted", action="store_true")
@@ -313,8 +298,10 @@ def main() -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     cs.log(smi)
     import cugraph_tpu_torch as ct
-    from cugraph_tpu_torch.prims.cuda import build
+    from cugraph_tpu_torch.prims.cuda import _partition, build
 
+    if not hasattr(_partition, "sweep_plan"):
+        sys.exit(f"time_spmv: {args.tree} has no _partition.sweep_plan to time")
     cs.log(f"cugraph_tpu_torch from {os.path.dirname(ct.__file__)}; "
            f"L2 {torch.cuda.get_device_properties(0).L2_cache_size} bytes")
     build.build(["spmv"])
