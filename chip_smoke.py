@@ -17,8 +17,16 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    of the narrow layout's lane groups); the column-segmented SpMV on
    plans of forced widths (K = 2, 3 with an uneven last range, 4, and a
    range with no edge) on the small and adversarial graphs, spmv_sum
-   within TOL_SUM_REL and spmv_minplus bit-exact; and
-   at the main path's shapes: spmv_sum, spmv_minplus, spmm_rows (both
+   within TOL_SUM_REL and spmv_minplus bit-exact; BFS's pull level
+   (bfs_pull_level) on the small skewed and adversarial graphs, every
+   level of a BFS launched twice and bit-equal (new, visited, dist, pred)
+   to its plain version, the min-plus level it replaces, by the rule's plan
+   and by plans of forced heavy degrees, the rows found <= the minors it
+   counts <= the stored edges, every class of row met (visited, light and
+   heavy rows found and not found); and
+   at the main path's shapes: spmv_sum, spmv_minplus, bfs_pull_level (every
+   level of a BFS from 0 checked so, each dense level timed beside the
+   min-plus level), spmm_rows (both
    modes, F = 128, 129 (the wide layout's scalar loads) and 40, and the
    narrow layout at F = 8, 16, 32, 10 in f32 and 8 in bf16), each kernel
    launched twice and bit-equal. Median
@@ -36,7 +44,8 @@ Phases, each unguarded, so any failure ends the run with a non-zero exit:
    renumber -> from_edgelist -> pagerank(tol=0, 50 iterations) ->
    bfs(0) -> 2-layer GraphSAGE forward (F = 128 -> 128 -> 64), each held
    against a reference computed here from the plain versions. The launch
-   counters are set to 0 just before and read just after. Then the
+   counters are set to 0 just before and read just after; BFS's dense
+   levels launch bfs_pull_level and nothing launches spmv_minplus. Then the
    gradient path: dX of one bf16 mean spmm_aggregate, whose backward
    launches spmm_rows over the CSR, against autograd through the plain
    version.
@@ -195,6 +204,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -758,6 +768,202 @@ def segment_checks(seed: int) -> None:
         f"unweighted, BFS x) and bit-equal to K = 1, each bit-equal on a second launch")
 
 
+# ------------------------------------------------------- BFS's pull level
+
+
+def bfs_start(v: int, sources):
+    """(frontier, visited, dist, pred) of a BFS from ``sources`` on DEV."""
+    frontier = torch.zeros(v, dtype=torch.bool, device=DEV)
+    frontier[torch.as_tensor(sources, dtype=torch.int64, device=DEV)] = True
+    dist = torch.where(frontier, 0, 2**31 - 1).to(torch.int32)
+    return frontier, frontier.clone(), dist, torch.full((v,), -1, dtype=torch.int32, device=DEV)
+
+
+def minplus_level(adj, frontier, visited, dist, pred, depth, ids):
+    """The dense BFS level as the port ran it before bfs_pull_level, with
+    ``ids`` the f32 ids: spmv_minplus over the CSC with x the ids on the
+    frontier, +inf elsewhere, then the rows not yet visited. Updates visited
+    in place; returns (new, dist, pred)."""
+    from cugraph_tpu_torch.prims.cuda import spmv_minplus
+
+    y = spmv_minplus(adj, torch.where(frontier, ids, float("inf")), use_weights=False)
+    new = torch.isfinite(y) & ~visited
+    pred_cand = torch.where(new, y, 0.0).to(torch.int32)
+    dist = torch.where(new, depth + 1, dist)
+    pred = torch.where(new, pred_cand, pred)
+    visited |= new
+    return new, dist, pred
+
+
+def check_bfs_pull(adj, sources, plan=None) -> dict:
+    """Every level of a BFS from ``sources`` through bfs_pull_level (by
+    ``pull_level`` where ``plan`` is given), launched twice a level: new,
+    visited, dist and pred of each launch bit-equal to the plain version
+    (the min-plus level of spmv_minplus_reference), and what each launch
+    adds to the edge counter the same both times and within its bounds: the
+    rows found <= the minors scanned <= the stored edges, which a full sweep
+    reads. Returns the levels, the minors scanned, the stored edges of the
+    levels, and the rows of each class met: visited with an in-edge, light
+    and heavy rows found and not found."""
+    from cugraph_tpu_torch.prims.cuda import (
+        _partition,
+        bfs_pull_level,
+        bfs_pull_level_reference,
+    )
+    from cugraph_tpu_torch.prims.cuda.bfs import edges_scanned, pull_level
+
+    use = _partition.pull_plan_for(adj) if plan is None else plan
+    deg = adj.degrees()
+    heavy = deg > use.heavy_degree
+    frontier, visited, dist, pred = bfs_start(adj.num_majors, sources)
+    out = dict(levels=0, scanned=0, full=0, visited=0, light_found=0, light_not_found=0,
+               heavy_found=0, heavy_not_found=0)
+    while bool(frontier.any()):
+        depth = out["levels"]
+        ref = [t.clone() for t in (visited, dist, pred)]
+        ref_new = bfs_pull_level_reference(adj, frontier, *ref, depth)
+        runs, counts = [], set()
+        for _ in range(2):
+            state = [t.clone() for t in (visited, dist, pred)]
+            before = edges_scanned(DEV)
+            new = (bfs_pull_level(adj, frontier, *state, depth) if plan is None
+                   else pull_level(plan, adj, frontier, *state, depth))
+            after = edges_scanned(DEV)
+            scanned, full = after[0] - before[0], after[1] - before[1]
+            found = int(new.sum())
+            require(found <= scanned <= full == adj.num_edges,
+                    f"bfs_pull_level counted {scanned}, {full} edges at level {depth} with "
+                    f"{found} rows found and {adj.num_edges} stored")
+            runs.append((new, *state))
+            counts.add(scanned)
+        require(len(counts) == 1, f"bfs_pull_level's two launches counted {sorted(counts)}")
+        for got in runs:
+            require(all(torch.equal(a, b) for a, b in zip(got, (ref_new, *ref))),
+                    f"bfs_pull_level differs from its plain version at level {depth}")
+        active = ~visited & (deg > 0)
+        out["visited"] += int((visited & (deg > 0)).sum())
+        for name, rows in (("light", active & ~heavy), ("heavy", active & heavy)):
+            out[f"{name}_found"] += int((rows & ref_new).sum())
+            out[f"{name}_not_found"] += int((rows & ~ref_new).sum())
+        out["scanned"] += scanned
+        out["full"] += full
+        frontier, visited, dist, pred = runs[0]
+        out["levels"] += 1
+    return out
+
+
+def bfs_level_states(g, root: int) -> list:
+    """The state before each dense level of ``bfs(g, root)``: (frontier,
+    visited, dist, pred, depth). A level writes only the rows it finds, so
+    each state follows from bfs's distances and predecessors; which levels
+    were dense, from bfs's own step spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import cugraph_tpu_torch as ct
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        dist, pred = ct.bfs(g, root)
+    steps = sorted((e.time_range.start, e.name) for e in prof.events()
+                   if e.name.startswith("cgt/step.bfs."))
+    states = []
+    for depth, (_, name) in enumerate(steps):
+        if name == "cgt/step.bfs.dense":
+            seen = dist <= depth
+            states.append((dist == depth, seen, torch.where(seen, dist, 2**31 - 1),
+                           torch.where(seen, pred, -1), depth))
+    return states
+
+
+def level_ms(call, state, reps: int) -> float:
+    """The median of ``reps`` single calls ``call(frontier, visited, dist,
+    pred, depth)`` between two CUDA events, each on a fresh copy of
+    ``state`` made before its first event, after one warm-up."""
+    work = [t.clone() for t in state[:4]]
+
+    def once():
+        for w, s in zip(work, state[:4]):
+            w.copy_(s)
+        sync()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(*work, state[4])
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    once()
+    return statistics.median(once() for _ in range(reps))
+
+
+def bfs_level_times(g, root: int, reps: int) -> list:
+    """For each dense level of ``bfs(g, root)``: the min-plus level
+    (spmv_minplus, as the port ran it before) and bfs_pull_level, each
+    timed by ``level_ms``, the pull bit-equal to the min-plus level; the
+    minors the pull scanned and the level's stored edges, the rows
+    unvisited before it, the frontier and the rows found."""
+    from cugraph_tpu_torch.prims.cuda import bfs_pull_level
+    from cugraph_tpu_torch.prims.cuda.bfs import edges_scanned
+
+    adj = g.csc()
+    ids = torch.arange(g.num_vertices, dtype=torch.float32, device=DEV)
+    rows = []
+    for state in bfs_level_states(g, root):
+        frontier, visited, dist, pred, depth = state
+        want_vis = visited.clone()
+        want = minplus_level(adj, frontier, want_vis, dist, pred, depth, ids)
+        got = [t.clone() for t in (visited, dist, pred)]
+        before = edges_scanned(DEV)
+        new = bfs_pull_level(adj, frontier, *got, depth)
+        after = edges_scanned(DEV)
+        require(torch.equal(new, want[0]) and torch.equal(got[0], want_vis)
+                and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+                f"bfs_pull_level differs from the min-plus level at depth {depth}")
+        rows.append(dict(
+            depth=depth, frontier=int(frontier.sum()), found=int(want[0].sum()),
+            unvisited=int((~visited).sum()), scanned=after[0] - before[0],
+            edges=after[1] - before[1],
+            minplus_ms=level_ms(lambda f, vis, d, p, k: minplus_level(adj, f, vis, d, p, k, ids),
+                                state, reps),
+            ms=level_ms(lambda f, vis, d, p, k: bfs_pull_level(adj, f, vis, d, p, k), state,
+                        reps)))
+    return rows
+
+
+def bfs_pull_checks(seed: int) -> dict:
+    """bfs_pull_level by check_bfs_pull on the small skewed graph (its
+    low ids are hub sources and heavy rows) and the adversarial graph (a
+    row of 2^18 + 4321 in-edges): the rule's plan through the wrapper, and
+    plans of forced heavy degrees (most rows heavy, none heavy). Every class
+    of row (visited, light and heavy rows found and not found) must be
+    met."""
+    from cugraph_tpu_torch.prims.cuda import _partition, bfs_pull_level
+
+    before = bfs_pull_level.launches
+    graphs = {"skewed": skewed_graph(seed + 20, weighted=False),
+              "adversarial": adversarial_graph(seed + 21, False, (64,))}
+    out, total, wrapped = {}, collections.Counter(), 0
+    for name, g in graphs.items():
+        adj = g.csc()
+        hub = int(g.out_degrees().argmax())
+        for sources in ([hub], [0, 1, g.num_vertices - 1]):
+            res = check_bfs_pull(adj, sources)
+            wrapped += 2 * res["levels"]
+            out[f"{name} {sources} rule"] = res
+            total.update(res)
+            for h in (8, 10**9):
+                res = check_bfs_pull(adj, sources, _partition.pull_plan(adj, h))
+                out[f"{name} {sources} H={h}"] = res
+                total.update(res)
+    require(bfs_pull_level.launches - before == wrapped,
+            "every rule check must launch bfs_pull_level twice a level")
+    for cls in ("visited", "light_found", "light_not_found", "heavy_found", "heavy_not_found"):
+        require(total[cls] > 0, f"the pull level checks met no {cls} row")
+    log(f"bfs_pull_level on the small skewed and adversarial graphs (rows a class, minors "
+        f"scanned of the stored edges of the levels): {json.dumps(out)}; bit-equal to its plain "
+        f"version, on a second launch, its counts the same and within their bounds")
+    return dict(total)
+
+
 def step_boundary_graph(seed: int, groups: int, k: int, rows: int = 6000):
     """A CSC whose rows are built one by one so that every fourth row's
     last edge closes a step of ``groups`` edges of the k-item tile that
@@ -919,6 +1125,7 @@ def full_shape_kernels(g, seed: int) -> dict:
     kernels also back to back, and the one-time cost of their tile plans."""
     from cugraph_tpu_torch.microbench import back_to_back_ms, median_ms
     from cugraph_tpu_torch.prims.cuda import (
+        bfs_pull_level_reference,
         spmm_row,
         spmm_rows,
         spmm_rows_reference,
@@ -966,6 +1173,27 @@ def full_shape_kernels(g, seed: int) -> dict:
         host_us=wrapper_host_split(adj, xb),
     )
     del xb
+
+    # bfs_pull_level: every level of a BFS from 0 checked; each dense level
+    # of it timed beside the plain version and the min-plus level it
+    # replaces; bound: the visited and frontier flags read and new written
+    # for every row, the offsets of the rows unvisited before the level and
+    # the scanned minors read, and the found rows' dist, pred and visited
+    # written, a level
+    pull = check_bfs_pull(adj, [0])
+    levels = bfs_level_times(g, 0, 20)
+    plain = [level_ms(lambda f, vis, d, p, k: bfs_pull_level_reference(adj, f, vis, d, p, k),
+                      state, 3) for state in bfs_level_states(g, 0)]
+    level_bytes = [3 * v + 4 * r["unvisited"] + 4 * r["scanned"] + 9 * r["found"]
+                   for r in levels]
+    b_ms, b_by = bound(sum(level_bytes), 0)
+    out["bfs_pull_level"] = dict(
+        max_abs_err=0.0, tol="bit-exact: new, visited, dist, pred vs its plain version and the "
+        "min-plus level", ms=sum(r["ms"] for r in levels), plain_ms=sum(plain),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        minplus_level_ms=sum(r["minplus_ms"] for r in levels), levels=levels,
+        scanned_share=pull["scanned"] / max(pull["full"], 1), checked=pull,
+    )
 
     # spmm_rows at F = 128 in the main path's bf16 mode, f32 beside it; F =
     # 129 (the wide layout's scalar loads, both modes) and F = 40 (narrow)
@@ -1105,12 +1333,15 @@ def seeded_graphsage(seed: int, out_features: int = 64):
 
 def main_path(scale: int, seed: int) -> dict:
     import cugraph_tpu_torch as ct
-    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+    from cugraph_tpu_torch.prims.cuda import bfs_pull_level, spmm_rows, spmv_minplus, spmv_sum
+    from cugraph_tpu_torch.prims.cuda.bfs import edges_scanned
 
-    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows,
+                "bfs_pull_level": bfs_pull_level}
     seconds = {}
     for k in counters.values():
         k.launches = 0
+    bfs_pull_level.edges.clear()
 
     t = time.perf_counter()
     g = rmat_graph(scale, seed)
@@ -1140,10 +1371,16 @@ def main_path(scale: int, seed: int) -> dict:
 
     launches = {name: k.launches for name, k in counters.items()}
     segments = segment_counts(g.csc())
+    scanned, full = edges_scanned(DEV)
     log(f"main path seconds: {json.dumps(seconds)}")
-    log(f"main path launches: {json.dumps(launches)}; column segments {json.dumps(segments)}")
+    log(f"main path launches: {json.dumps(launches)}; column segments {json.dumps(segments)}; "
+        f"bfs_pull_level scanned {scanned} of the {full} edges its levels' full sweeps read")
     for name, n in launches.items():
-        require(n > 0, f"{name} was not launched on the main path")
+        if name != "spmv_minplus":
+            require(n > 0, f"{name} was not launched on the main path")
+    # BFS's dense levels take the pull level: nothing on the main path
+    # launches the min-plus sweep
+    require(launches["spmv_minplus"] == 0, "the main path's bfs launched spmv_minplus")
 
     # PageRank: sums to 1, matches the float64 reference
     require(abs(float(pr.sum()) - 1.0) <= TOL_PAGERANK_SUM, f"pagerank sum {float(pr.sum())}")
@@ -1170,7 +1407,8 @@ def main_path(scale: int, seed: int) -> dict:
     require(sage_err <= TOL_SAGE_ABS, f"graphsage max abs error {sage_err}")
     log(f"graphsage: max abs error {sage_err:.3e} vs the layers applied by hand")
     return dict(seconds=seconds, launches=launches, segments=segments, pagerank_iterations=iters,
-                pagerank_rel_err=pr_err, pagerank_max_abs_err=pr_abs, bfs_levels=levels, bfs_reached=reached,
+                pagerank_rel_err=pr_err, pagerank_max_abs_err=pr_abs, bfs_levels=levels,
+                bfs_reached=reached, bfs_edges_scanned=scanned, bfs_edges_swept=full,
                 graphsage_err=sage_err, warm=warm_breakdown(phases),
                 gradient=gradient_path(g, feats, seed))
 
@@ -2718,6 +2956,7 @@ def community_path(scale: int, small_scale: int, seed: int) -> dict:
     import cugraph_tpu_torch as ct
     from cugraph_tpu_torch.prims.cuda import (
         assemble_chunks,
+        bfs_pull_level,
         cumsum_flat,
         spmm_rows,
         spmv_minplus,
@@ -2725,7 +2964,8 @@ def community_path(scale: int, small_scale: int, seed: int) -> dict:
     )
 
     counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows,
-                "cumsum_flat": cumsum_flat, "assemble_chunks": assemble_chunks}
+                "cumsum_flat": cumsum_flat, "assemble_chunks": assemble_chunks,
+                "bfs_pull_level": bfs_pull_level}
     torch.cuda.reset_peak_memory_stats()
     seconds, launches, results = {}, {}, {}
 
@@ -2785,7 +3025,8 @@ def community_path(scale: int, small_scale: int, seed: int) -> dict:
             core_rounds = ct.core_number.rounds
     log(f"community path seconds: {json.dumps(seconds)}")
     log(f"community path launches: {json.dumps(launches)}")
-    require(launches["ego_graph"]["spmv_minplus"] > 0, "ego_graph's bfs must launch spmv_minplus")
+    require(launches["ego_graph"]["bfs_pull_level"] > 0 and launches["ego_graph"]["spmv_minplus"] == 0,
+            "ego_graph's bfs must launch bfs_pull_level and not spmv_minplus")
     out = dict(seconds=seconds, launches=launches, num_edges_symmetrized=g.num_edges,
                num_edges_directed=g_dir.num_edges, small_scale=small_scale,
                small_num_edges=gs.num_edges)
@@ -3007,6 +3248,7 @@ def api_path(scale: int, small_scale: int, seed: int) -> dict:
     from cugraph_tpu_torch.core.renumber import NumberMap
     from cugraph_tpu_torch.prims.cuda import (
         assemble_chunks,
+        bfs_pull_level,
         cumsum_flat,
         spmm_rows,
         spmv_minplus,
@@ -3016,7 +3258,8 @@ def api_path(scale: int, small_scale: int, seed: int) -> dict:
     from cugraph_tpu_torch.utils.error import GraphError
 
     counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows,
-                "cumsum_flat": cumsum_flat, "assemble_chunks": assemble_chunks}
+                "cumsum_flat": cumsum_flat, "assemble_chunks": assemble_chunks,
+                "bfs_pull_level": bfs_pull_level}
     seconds, launches = {}, {}
 
     def run(name, fn):
@@ -3161,7 +3404,9 @@ def api_path(scale: int, small_scale: int, seed: int) -> dict:
             layer_s=seconds[f"api_{name}_warm"] - seconds[f"core_{name}_warm"],
             warm_s=warm, check_frame_s=convert_s)
     require(algos["pagerank"]["launches"]["spmv_sum"] > 0, "api pagerank must launch spmv_sum")
-    require(algos["bfs"]["launches"]["spmv_minplus"] > 0, "api bfs must launch spmv_minplus")
+    require(algos["bfs"]["launches"]["bfs_pull_level"] > 0
+            and algos["bfs"]["launches"]["spmv_minplus"] == 0,
+            "api bfs must launch bfs_pull_level and not spmv_minplus")
     out["algorithms"] = algos
     log(f"api algorithms: {json.dumps(algos)}")
 
@@ -4122,10 +4367,11 @@ def service_path(scale: int, seed: int) -> dict:
     import pandas as pd
 
     from cugraph_tpu_torch import api
-    from cugraph_tpu_torch.prims.cuda import spmm_rows, spmv_minplus, spmv_sum
+    from cugraph_tpu_torch.prims.cuda import bfs_pull_level, spmm_rows, spmv_minplus, spmv_sum
     from cugraph_tpu_torch.service import CugraphTpuClient, CugraphTpuServer
 
-    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows}
+    counters = {"spmv_sum": spmv_sum, "spmv_minplus": spmv_minplus, "spmm_rows": spmm_rows,
+                "bfs_pull_level": bfs_pull_level}
     src, dst, v = rmat_edges(scale, seed)
     # the handler builds simple graphs: each edge once
     frame = pd.DataFrame({"src": src.cpu().numpy(), "dst": dst.cpu().numpy()}).drop_duplicates()
@@ -4213,8 +4459,9 @@ def service_path(scale: int, seed: int) -> dict:
     require(not dist.is_initialized(), "the server's stop must end the handler's group")
     require(launches["pagerank"]["spmv_sum"] > 0 and launches["mg_pagerank"]["spmv_sum"] > 0,
             "service pagerank must launch spmv_sum")
-    require(launches["bfs"]["spmv_minplus"] > 0 and launches["mg_wcc"]["spmv_minplus"] > 0,
-            "service bfs and MG wcc must launch spmv_minplus")
+    require(launches["bfs"]["bfs_pull_level"] > 0 and launches["bfs"]["spmv_minplus"] == 0,
+            "service bfs must launch bfs_pull_level and not spmv_minplus")
+    require(launches["mg_wcc"]["spmv_minplus"] > 0, "service MG wcc must launch spmv_minplus")
     out.update(seconds=seconds, launches=launches, num_edges=len(frame), vertices=v)
     log(f"service path seconds: {json.dumps(seconds)}")
     log(f"service path launches: {json.dumps(launches)}")
@@ -4279,6 +4526,9 @@ SOURCES = {
                           "benchmarks/microbench4_rowgather.py:68"),
     "multiwin_reduce": ("cugraph_tpu_torch/csrc/probes.cu", "benchmarks/microbench_tpu.py:294"),
     "seg_scan_rows": ("cugraph_tpu_torch/csrc/probes.cu", "benchmarks/microbench_tpu.py:354"),
+    "bfs_pull_level": ("cugraph_tpu_torch/csrc/bfs.cu",
+                       "none: a dense BFS level's bottom-up pull, where the JAX package sweeps "
+                       "the level with cugraph_tpu/prims/pallas/spmv2.py:1675 (min)"),
 }
 ALSO_REPLACES = {
     "spmv_sum": [
@@ -4299,6 +4549,7 @@ ALSO_REPLACES = {
     ],
     "cumsum_flat": ["cugraph_tpu/prims/pallas/scan.py:59"],
     "assemble_chunks": [],
+    "bfs_pull_level": [],
     # a site as def / pallas_call; microbench3_tpu.py's bodies go through
     # block_call (29 / 34)
     "stream_scale": ["benchmarks/microbench_tpu.py:67",
@@ -4348,6 +4599,7 @@ def main() -> int:
     t = time.perf_counter()
     small_graph_checks(args.seed)
     segment_checks(args.seed)
+    bfs_pull_checks(args.seed)
     g = rmat_graph(args.scale, args.seed)
     kernels = full_shape_kernels(g, args.seed)
     del g
@@ -4463,6 +4715,9 @@ def main() -> int:
             extra["out_block"] = tpath["mg"]["out_block"]
         if name in ("spmv_sum", "spmv_minplus"):
             extra["segments"] = path["segments"]
+        if name == "bfs_pull_level":
+            extra["main_path_scanned_share"] = (path["bfs_edges_scanned"]
+                                                / max(path["bfs_edges_swept"], 1))
         lines.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             also_replaces=ALSO_REPLACES[name], launches=launches,

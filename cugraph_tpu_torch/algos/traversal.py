@@ -6,15 +6,18 @@ Counterpart of ``cugraph_tpu/algos/traversal.py`` (``bfs``,
 cpp/src/traversal/bfs_impl.cuh depth loop :205-283, sssp_impl.cuh,
 extract_bfs_paths_impl.cuh).
 
-A dense BFS level is one min-plus sweep over the unweighted CSC,
-``spmv_minplus`` on the card: with x[u] = u for u in the frontier and +inf
-elsewhere, y[v] = min over in-edges of x[u] is finite exactly where v has a
-frontier in-neighbour, and is then the smallest such id, the predecessor.
-Ids ride f32 exactly up to V = 2^24. From V >= 2^22 on, levels whose
-frontier is small (out-degree sum <= cap_e and size <= cap_v) take a
-compacted push instead (``_sparse_bfs_level``), as in the JAX package;
-above 2^24 every level does. ``bfs`` marks its call, each level (sparse or
-dense) and each blocking read with spans (``utils/timer.py``).
+A dense BFS level is a bottom-up pull over the CSC, ``bfs_pull_level``:
+each unvisited row takes as predecessor its smallest in-neighbour on the
+frontier, the row's first in an ascending scan, and writes its distance,
+predecessor and visited flag in place. It gives what the JAX package's
+min-plus sweep gives (x[u] = u on the frontier, +inf elsewhere; y[v] = min
+over in-edges of x[u], finite exactly where v has a frontier in-neighbour)
+on every row that level keeps. From V >= 2^22 on, levels whose frontier is
+small (out-degree sum <= cap_e and size <= cap_v) take a compacted push
+instead (``_sparse_bfs_level``), as in the JAX package; above 2^24, where
+the JAX package's f32 ids stop being exact, every level does, as there.
+``bfs`` marks its call, each level (sparse or dense) and each blocking
+read with spans (``utils/timer.py``).
 
 SSSP is Bellman-Ford. A weighted graph with E >= 2^18 and V <= 2^24 (the
 JAX package's gate for its min-plus layout) takes full sweeps of the
@@ -30,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.csr import Graph
-from ..prims.cuda import spmv_minplus
+from ..prims.cuda import bfs_pull_level, spmv_minplus
 from ..prims.frontier import transform_reduce_v_frontier_outgoing_e_by_dst
 from ..prims.reduce_ops import ANY, MINIMUM
 from ..utils.device import as_tensor
@@ -40,7 +43,7 @@ from ..utils.timer import span, spanned
 
 INVALID_DISTANCE = INT32_MAX  # ref: unreachable = INT_MAX
 INVALID_VERTEX = -1  # ref: no predecessor = invalid vertex id
-MAX_VERTICES = 1 << 24  # vertex ids ride f32 exactly up to here
+MAX_VERTICES = 1 << 24  # the JAX package's dense levels: ids ride f32 exactly up to here
 SPARSE_MIN_VERTICES = 1 << 22  # below this every level is a dense sweep
 DEFAULT_SPARSE_CAPS = (1 << 19, 1 << 17)  # (cap_e, cap_v)
 # SSSP takes min-plus sweeps on weighted graphs within these bounds
@@ -123,8 +126,9 @@ def bfs(
     predecessor -1. direction_optimizing is accepted and ignored, as in the
     JAX package (each level is edge-complete already). sparse_caps:
     (cap_e, cap_v) for the compacted levels, default (2^19, 2^17). Above
-    MAX_VERTICES, where ids no longer ride f32 exactly, every level is the
-    compacted push, as the JAX package's ``_bfs_jit`` is there."""
+    MAX_VERTICES (where the JAX package's f32 ids stop being exact) every
+    level is the compacted push, as the JAX package's ``_bfs_jit`` is
+    there."""
     del direction_optimizing
     v = g.num_vertices
     dev = g.device
@@ -136,7 +140,6 @@ def bfs(
     use_sparse = v >= SPARSE_MIN_VERTICES or not dense_ok
     csc = g.csc() if dense_ok else None
     csr = g.csr() if use_sparse else None
-    ids = torch.arange(v, dtype=torch.float32, device=dev) if dense_ok else None
 
     visited = frontier.clone()
     dist = torch.where(frontier, 0, INVALID_DISTANCE).to(VERTEX_DTYPE)
@@ -158,14 +161,11 @@ def bfs(
                     csr.offsets, csr.minors, frontier, visited
                 )
                 new = touched & ~visited
-            else:
-                x = torch.where(frontier, ids, float("inf"))
-                y = spmv_minplus(csc, x, use_weights=False)
-                new = torch.isfinite(y) & ~visited
-                pred_cand = torch.where(new, y, 0.0).to(VERTEX_DTYPE)
-            dist = torch.where(new, depth + 1, dist)
-            pred = torch.where(new, pred_cand, pred)
-            visited |= new
+                dist = torch.where(new, depth + 1, dist)
+                pred = torch.where(new, pred_cand, pred)
+                visited |= new
+            else:  # writes dist, pred and visited in place
+                new = bfs_pull_level(csc, frontier, visited, dist, pred, depth)
             frontier = new
             depth += 1
     return dist, pred

@@ -13,6 +13,8 @@
   ``multiwin_reduce`` and ``seg_scan_rows``, the TPU probes of
   ``benchmarks/`` (csrc/probes.cu); their entry point is
   ``cugraph_tpu_torch.microbench``.
+- bfs: ``bfs_pull_level``, one dense BFS level as a bottom-up pull over
+  the CSC (csrc/bfs.cu).
 - build: nvcc build into build/cugraph_tpu_torch/ and ctypes loading.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
@@ -22,6 +24,7 @@ version (``*_reference``, same module) for a CPU tensor.
 import torch
 
 from .assemble import assemble_chunks, assemble_chunks_reference
+from .bfs import bfs_pull_level, bfs_pull_level_reference
 from .probes import (
     gather_rows,
     gather_rows_reference,

@@ -32,7 +32,16 @@ An SpMV sweep follows one ``SweepPlan``: its ranges in order, each with
 its merge-path tiles. ``sweep_plan`` builds one from its arguments alone;
 ``plan_for`` applies the rule (``segment_count`` and the ``SEGMENT_*``
 constants) on the adjacency's card, at its first sweep, and keeps the plan
-on the adjacency. Every plan of an adjacency (the sweep's, and the tiles
+on the adjacency.
+
+BFS's pull level (``bfs_pull_level``, csrc/bfs.cu) scans each unvisited
+row of a CSC until its first in-neighbour on the frontier: a group of a
+few lanes a light row, a block a heavy one, the rows above
+``heavy_degree`` in-edges. ``pull_plan`` lists those rows; ``pull_plan_for``
+applies ``PULL_HEAVY_DEGREE`` at the adjacency's first dense level and
+keeps the plan beside the sweep's.
+
+Every plan of an adjacency (the sweep's, the pull level's, and the tiles
 of ``spmm_rows`` by ``tiles_for``) lives in its private cache, which only
 this module reads and writes.
 """
@@ -70,6 +79,16 @@ SEGMENT_MIN_DEGREE = 3
 # faster at a share of 0.28, 2.3% at 0.74, and 0.6% slower at 0.86 (0.3%
 # at 0.93, 1.0% at GAP's Urand): the crossover is near 0.83 (PERF.md §6)
 SEGMENT_HYPERSPARSE_SHARE = 0.8
+# BFS's pull level: a row above this many in-edges is heavy, scanned by a
+# whole block (a launch of its own) where a light row takes a group of 4
+# lanes (csrc/bfs.cu kLanes). A query's dense levels from one seeded root on
+# the benchmark's s24 graphs (H100, time_spmv.py --bfs; PERF.md §6): Kron
+# 4.32, 4.15, 4.33, 4.35 ms at 128, 256, 1024 and none heavy; Urand has no
+# row above 128. End to end (kron24.bfs, 3 pairs of 50 s runs, H100 at
+# 700 W): gteps.bfs 28.97, 28.23, 28.22 at 256 against 28.12, 27.65, 29.10
+# with none heavy, but query_p95_ms.bfs 11.37, 11.88, 11.85 against 13.25,
+# 13.29, 12.66: a hub left to a few lanes holds up its query
+PULL_HEAVY_DEGREE = 256
 
 
 def merge_path_tiles(
@@ -222,4 +241,36 @@ def plan_for(adj: CompressedAdj) -> SweepPlan:
         k = segment_count(n, adj.num_edges, adj.num_majors, _l2_bytes(adj.offsets.device.index))
         plan = adj._plans["sweep"] = sweep_plan(
             adj, max(-(-n // k), 1), SEGMENT_HYPERSPARSE_SHARE, SUM_ITEMS_PER_THREAD)
+    return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class PullPlan:
+    """BFS's pull level over a CSC: ``heavy_rows``, the ids of the rows of
+    more than ``heavy_degree`` in-edges (int32, ascending), each scanned
+    by a block; every other row by a group of lanes."""
+
+    heavy_rows: torch.Tensor
+    heavy_degree: int
+
+
+def pull_plan(adj: CompressedAdj, heavy_degree: int) -> PullPlan:
+    """The pull level's plan of ``adj``: its rows above ``heavy_degree``
+    in-edges, listed by one ``nonzero`` over the degrees (a host read) under
+    a ``cgt/setup.bfs_pull_plan`` set-up span, with the counter
+    ``heavy_rows``."""
+    if heavy_degree < 0:
+        raise ValueError(f"heavy_degree must not be negative, got {heavy_degree}")
+    with span("cgt/setup.bfs_pull_plan", setup=True, device=adj.offsets.device) as kept:
+        heavy = torch.nonzero(adj.degrees() > heavy_degree).flatten().to(torch.int32)
+        kept.count("heavy_rows", heavy.numel())
+    return PullPlan(heavy, int(heavy_degree))
+
+
+def pull_plan_for(adj: CompressedAdj) -> PullPlan:
+    """BFS's pull plan of ``adj`` at ``PULL_HEAVY_DEGREE``, built at its
+    first dense level and kept in its cache."""
+    plan = adj._plans.get("pull")
+    if plan is None:
+        plan = adj._plans["pull"] = pull_plan(adj, PULL_HEAVY_DEGREE)
     return plan

@@ -27,7 +27,7 @@ from ...utils.timer import record_setup_span, span
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cugraph_tpu_torch"
-SOURCES = ("spmv", "spmm_row", "scan", "assemble", "probes")
+SOURCES = ("spmv", "spmm_row", "scan", "assemble", "probes", "bfs")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +65,12 @@ SIGNATURES = {
                                 _INT, _VP],
         # out: the new event
         "cgt_assemble_event": [ctypes.POINTER(_VP)],
+    },
+    "bfs": {
+        # offsets, minors, frontier, bits, visited, dist, pred, new, heavy_rows,
+        # n_heavy, counts, n, heavy_degree, depth, stream
+        "cgt_bfs_pull_level": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _INT,
+                               _INT, _VP],
     },
     "probes": {
         # x, o, n, a, vec, stream

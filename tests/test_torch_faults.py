@@ -167,11 +167,12 @@ def test_bfs_above_max_vertices_matches_jax(graph, sources, monkeypatch):
     src, dst, v = _karate() if graph == "karate" else _random_directed(5)
     want_d, want_p = cg.bfs(cg.from_edgelist(src, dst, num_vertices=v), np.array(sources))
     tg = ct.from_edgelist(src, dst, num_vertices=v, device="cpu")
-    minplus = []
-    monkeypatch.setattr(traversal, "spmv_minplus", lambda *a, **k: minplus.append(1))
+    dense = []
+    monkeypatch.setattr(traversal, "spmv_minplus", lambda *a, **k: dense.append(1))
+    monkeypatch.setattr(traversal, "bfs_pull_level", lambda *a, **k: dense.append(1))
     monkeypatch.setattr(traversal, "MAX_VERTICES", v - 1)
     got_d, got_p = ct.bfs(tg, sources)
-    assert minplus == []  # every level took the compacted push
+    assert dense == []  # every level took the compacted push
     np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
     np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
     got_d, _ = ct.bfs(tg, sources, 2)

@@ -30,6 +30,7 @@ from cugraph_tpu_torch.algos import traversal
 from cugraph_tpu_torch.gnn import GCN, GraphSAGE
 from cugraph_tpu_torch.prims.cuda import (
     assemble_chunks,
+    bfs_pull_level,
     cumsum_flat,
     gather_rows,
     gather_window_sum,
@@ -212,7 +213,7 @@ def test_default_device_without_cuda_raises(name, monkeypatch):
 
 def test_cpu_tensors_launch_no_kernel(monkeypatch):
     counters = (spmv_sum, spmv_minplus, spmm_rows, cumsum_flat, assemble_chunks, stream_scale,
-                gather_rows, gather_window_sum, multiwin_reduce, seg_scan_rows)
+                gather_rows, gather_window_sum, multiwin_reduce, seg_scan_rows, bfs_pull_level)
     before = [fn.launches for fn in counters]
     rng = np.random.default_rng(0)
     src, dst = rng.integers(0, 50, 300), rng.integers(0, 50, 300)

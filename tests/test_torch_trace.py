@@ -123,7 +123,8 @@ def test_bfs_counts_its_dense_and_sparse_levels(graph, mixed_levels):
     assert dense and sparse
     assert len(dense) + len(sparse) == levels
     assert len(named(events, "cgt/sync.bfs.frontier_any")) == levels + 1
-    assert len(named(events, "cgt/kernel.spmv_minplus")) == len(dense)
+    assert len(named(events, "cgt/kernel.bfs_pull_level")) == len(dense)
+    assert named(events, "cgt/kernel.spmv_minplus") == []
     for name in ("frontier_ids", "out_edge_total", "unvisited", "touched"):
         assert len(named(events, f"cgt/sync.bfs.{name}")) == len(sparse)
     (call,) = named(events, "cgt/algorithms.bfs")

@@ -40,6 +40,15 @@ Phases:
   each form, checked and timed as above, with the bytes the segments
   keep on the card.
 
+- ``--bfs``: in place of the sweep, BFS's pull level on each graph: a
+  root drawn from ``SEED`` among the vertices with an edge, and for each
+  dense level of ``bfs`` from it the min-plus level (``spmv_minplus``,
+  then the unvisited rows, as the port ran a dense level before
+  ``bfs_pull_level``) against ``bfs_pull_level``, each level's calls
+  timed singly on a fresh copy of its state, the pull bit-equal to the
+  min-plus level, with the minors it scanned of the level's stored edges;
+  then the whole query, ``bfs`` from the root. Times this checkout only.
+
 Prints the card's name and power limit, then one JSON line, also written
 to ``--out``. Needs CUDA.
 """
@@ -173,6 +182,31 @@ def sweep(g, ks, forms, saved, name) -> dict:
     return out
 
 
+def bfs_levels(g) -> dict:
+    """The ``--bfs`` phase on graph ``g``."""
+    import torch
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.microbench import median_ms
+
+    adj = g.csc()
+    has_edge = (adj.degrees() > 0).nonzero().flatten()
+    pick = torch.randint(0, has_edge.numel(), (1,),
+                         generator=torch.Generator(device=cs.DEV).manual_seed(SEED), device=cs.DEV)
+    root = int(has_edge[pick])
+    out = {"root": root, "vertices": g.num_vertices, "edges": adj.num_edges,
+           "levels": cs.bfs_level_times(g, root, REPS)}
+    for row in out["levels"]:
+        cs.log(f"bfs level {row['depth']}: {json.dumps(row)}")
+    out["dense_levels_ms"] = {k: sum(r[k] for r in out["levels"]) for k in ("ms", "minplus_ms")}
+    out["scanned_share"] = (sum(r["scanned"] for r in out["levels"])
+                            / max(sum(r["edges"] for r in out["levels"]), 1))
+    out["query_ms"] = median_ms(lambda: ct.bfs(g, root), REPS, cs.DEV)
+    cs.log(f"bfs from {root}: dense levels ms {json.dumps(out['dense_levels_ms'])}, "
+           f"{out['scanned_share']:.4f} of their edges scanned; query {out['query_ms']:.3f} ms")
+    return out
+
+
 def degrees(ds, ks, forms) -> dict:
     import torch
 
@@ -285,6 +319,7 @@ def main() -> int:
     ap.add_argument("--degrees", default="", help="average degrees of the Urand phase")
     ap.add_argument("--block", action="store_true", help="time one card's block of s27")
     ap.add_argument("--weighted", action="store_true")
+    ap.add_argument("--bfs", action="store_true", help="time BFS's dense levels, not the sweep")
     ap.add_argument("--save", default=None, help="torch.save the K = 1 results here")
     ap.add_argument("--against", default=None, help="compare with results saved by --save")
     ap.add_argument("--out", default="build/time_spmv.json")
@@ -304,10 +339,12 @@ def main() -> int:
         sys.exit(f"time_spmv: {args.tree} has no _partition.sweep_plan to time")
     cs.log(f"cugraph_tpu_torch from {os.path.dirname(ct.__file__)}; "
            f"L2 {torch.cuda.get_device_properties(0).L2_cache_size} bytes")
-    build.build(["spmv"])
-    for line in build.compiler_report("spmv").splitlines():
-        if "registers" in line or "spill" in line:
-            cs.log(f"  spmv: {line.strip()}")
+    libs = ["spmv", "bfs"] if args.bfs else ["spmv"]
+    build.build(libs)
+    for lib in libs:
+        for line in build.compiler_report(lib).splitlines():
+            if "registers" in line or "spill" in line:
+                cs.log(f"  {lib}: {line.strip()}")
     result = {"tree": args.tree or ".", "card": smi,
               "l2_bytes": torch.cuda.get_device_properties(0).L2_cache_size}
     saved = torch.load(args.against) if args.against else None
@@ -316,6 +353,11 @@ def main() -> int:
     keep = {}
     for name in filter(None, args.graphs.split(",")):
         g = card_graph(name, SEED, args.weighted)
+        if args.bfs:
+            result[name] = {"bfs": bfs_levels(g)}
+            del g
+            torch.cuda.empty_cache()
+            continue
         res = sweep(g, ks, forms, saved, name)
         keep.update(res.pop("k1", {}))
         result[name] = res
