@@ -35,10 +35,10 @@ def control_readings(cell, seed: int, device) -> dict:
     gen = importlib.import_module(f"port_bench.gen.{config['generator']}")
     reference = importlib.import_module(f"port_bench.reference.{traffic['analytic']}")
     v = 1 << int(config["scale"])
-    src, dst = gen.edges(config, harness.derive_seed(seed, "edges"), device)
+    src, dst, weight = harness.cell_edges(gen, config, seed, device)
     args, _ = harness.draw_args(traffic, [(src, dst)], v, seed, device)
-    ref = refgraph.build(src, dst, v)
-    del src, dst
+    ref = refgraph.build(src, dst, v, weight)
+    del src, dst, weight
     args = [args[i % len(args)] for i in range(int(traffic["check_sample"]))]
     results = reference.control(ref, args, traffic["params"])
     samples = [(a, r) for a, (r, _) in zip(args, results)]

@@ -32,6 +32,7 @@ from pathlib import Path
 import torch
 
 from . import spans, timing
+from .gen import weights as weight_gen
 from .reference import graph as refgraph
 
 BENCH_DIR = Path(__file__).resolve().parent
@@ -102,6 +103,17 @@ def metric_reader(bench_dir: Path, name: str, analytic: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def cell_edges(gen, config: dict, seed: int, device: torch.device):
+    """(src, dst, weight) of a cell on one card: the generator's tuples from
+    the seed's ``edges`` stream, and one weight a tuple from its
+    ``weights`` stream where the configuration names weights (else None),
+    so that a weighted configuration stores the graph of its unweighted
+    twin."""
+    src, dst = gen.edges(config, derive_seed(seed, "edges"), device)
+    weight = weight_gen.draw(config, src.numel(), derive_seed(seed, "weights"), device)
+    return src, dst, weight
 
 
 def draw_args(traffic: dict, chunks, num_vertices: int, seed: int, device: torch.device):
@@ -247,13 +259,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     # ---- set-up: the edges and roots from the seed, ingest, warm-up
     marks = [("imports", time.perf_counter())]
-    src, dst = gen.edges(config, derive_seed(seed, "edges"), device)
+    src, dst, weight = cell_edges(gen, config, seed, device)
     args, warm = draw_args(traffic, [(src, dst)], v, seed, device)
     sync()
     t = time.perf_counter()
     marks.append(("edges and roots", t))
-    g = port.from_edgelist(src, dst, num_vertices=v, symmetrize=bool(config["symmetrize"]),
-                           device=device)
+    g = port.from_edgelist(src, dst, weight, num_vertices=v,
+                           symmetrize=bool(config["symmetrize"]), device=device)
     sync()
     ingest_s = time.perf_counter() - t
     marks.append(("ingest", time.perf_counter()))
@@ -272,10 +284,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     # ---- the check, after the window: the reference from the same edges
     t_check = time.perf_counter()
-    ref = refgraph.build(src, dst, v)
+    ref = refgraph.build(src, dst, v, weight)
     checks = {"graph_mismatch": (refgraph.graph_mismatch(g, ref), GRAPH_MISMATCH_LIMIT)}
     stored = g.num_edges
-    del g, dst
+    del g, dst, weight
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -311,6 +323,9 @@ def run_rank(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     cell = load_cell(root, workload)
     config, traffic = cell.config, cell.traffic
+    if "weights" in config:
+        raise ValueError(f"{workload} runs across cards on a weighted configuration: the "
+                         "harness draws and checks weights on one card only")
     query, reference, gen = cell_modules(cell)
     for module, name in ((query, "run_mg"), (reference, "check_split"), (gen, "edge_chunks")):
         if not hasattr(module, name):

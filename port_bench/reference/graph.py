@@ -4,14 +4,17 @@ nominal counts of a query read (connected components, their tuples, stored
 edges and vertices).
 
 Stored edges: every tuple (u, v) and its reciprocal (v, u), each distinct
-ordered pair once, a self-loop (u, u) once; sorted by (u, v). That is the
-graph ``from_edgelist(..., symmetrize=True)`` promises.
+ordered pair once, a self-loop (u, u) once; sorted by (u, v). With weights,
+a tuple's weight goes to both directions and a pair that appears more than
+once keeps its smallest weight. That is the graph
+``from_edgelist(..., symmetrize=True)`` promises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -25,6 +28,7 @@ class RefGraph:
     src: torch.Tensor  # (E,) int32 u
     dst: torch.Tensor  # (E,) int32 v
     offsets: torch.Tensor  # (V + 1,) int64
+    weights: Optional[torch.Tensor] = None  # (E,) int32 whole weights, or None
 
     @property
     def num_edges(self) -> int:
@@ -40,31 +44,64 @@ class RefGraph:
         return self.keys[pos] == q
 
 
-def build(src_in: torch.Tensor, dst_in: torch.Tensor, num_vertices: int) -> RefGraph:
+def build(src_in: torch.Tensor, dst_in: torch.Tensor, num_vertices: int,
+          weight_in: Optional[torch.Tensor] = None) -> RefGraph:
+    """The stored graph of the tuples (and of their weights, whole numbers
+    >= 0, where given)."""
     v = num_vertices
     s, d = src_in.long(), dst_in.long()
-    keys = torch.unique(torch.cat([s * v + d, d * v + s]))
+    if weight_in is None:
+        keys = torch.unique(torch.cat([s * v + d, d * v + s]))
+        weights = None
+    else:
+        keys, weights = _min_weight_pairs(s, d, weight_in, v)
     del s, d
     src = torch.div(keys, v, rounding_mode="floor").to(torch.int32)
     dst = (keys % v).to(torch.int32)
     offsets = torch.zeros(v + 1, dtype=torch.int64, device=keys.device)
     offsets[1:] = torch.cumsum(torch.bincount(src, minlength=v), 0)
-    return RefGraph(v, keys, src, dst, offsets)
+    return RefGraph(v, keys, src, dst, offsets, weights)
+
+
+def _min_weight_pairs(s: torch.Tensor, d: torch.Tensor, weight_in: torch.Tensor, v: int):
+    """(keys, weights) of the distinct ordered pairs of the tuples and
+    their reciprocals, each with its smallest weight: the pair key and the
+    weight packed into one int64 (key above, weight in the low bits),
+    sorted and made unique, so that a pair's first entry holds its least
+    weight."""
+    w = weight_in.long()
+    if not torch.equal(w.to(weight_in.dtype), weight_in) or int(w.min()) < 0:
+        raise ValueError("the reference takes whole weights >= 0")
+    wbits = max(int(w.max()).bit_length(), 1)
+    if (v * v - 1).bit_length() + wbits > 63:
+        raise ValueError(f"{v} vertices and {wbits}-bit weights do not pack into int64")
+    packed = torch.unique(torch.cat([((s * v + d) << wbits) | w, ((d * v + s) << wbits) | w]))
+    del w
+    keys = packed >> wbits
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    weights = (packed[first] & ((1 << wbits) - 1)).to(torch.int32)
+    return keys[first], weights
 
 
 def graph_mismatch(graph, ref: RefGraph) -> int:
     """How far the port's graph is from the reference: 1 for each of its
-    vertex count, edge count and symmetry that differ, else the count of
-    its adjacency's offsets, minors and majors that differ (exact: the
-    limit is 0)."""
+    vertex count, edge count, symmetry and whether it holds weights that
+    differ, else the count of its adjacency's offsets, minors, majors and
+    weights that differ (exact: the limit is 0)."""
     adj = graph.csr()
     bad = int(graph.num_vertices != ref.num_vertices) + int(not graph.is_symmetric)
     bad += int(graph.num_edges != ref.num_edges) + int(adj.num_edges != ref.num_edges)
+    bad += int((adj.weights is None) != (ref.weights is None))
     if bad:
         return bad
     bad += int((adj.offsets.long() != ref.offsets).sum())
     bad += int((adj.minors != ref.dst).sum())
     bad += int((adj.majors != ref.src).sum())
+    if ref.weights is not None:
+        for i in range(0, ref.num_edges, CHUNK):
+            want = ref.weights[i:i + CHUNK].to(adj.weights.dtype)
+            bad += int((adj.weights[i:i + CHUNK] != want).sum())
     return bad
 
 

@@ -88,3 +88,49 @@ def test_edge_chunks(monkeypatch, gen, name):
         assert deg.max() > 20 * deg.mean() and int(torch.topk(deg, 16).indices.min()) > 16
     else:
         assert deg.max() < 3 * deg.mean()
+
+
+# sha256 of the harness's tuples at scale 10 for SEED (its "edges" stream)
+# and of the port's stored graph of them (offsets, minors, majors), taken
+# before configurations could name weights: an unweighted configuration
+# draws and stores the same graph since
+STORED_SHA256 = {
+    "gap-kron-s24": "6ec0eaf8f0fe6a27b73068dd5ea1ace1470bbf2d5599aef47ed8abbee1590ed3",
+    "gap-urand-s24": "82f27a0af7c4a6a9b79770e1b82f2e3f5d25754fbe61bf5949c36d42317e53ba",
+}
+
+
+@pytest.mark.parametrize("gen,name", [(kronecker, "gap-kron-s24"), (uniform, "gap-urand-s24")])
+def test_unweighted_stored_graph_unchanged(gen, name):
+    import cugraph_tpu_torch as port
+    from port_bench import harness
+
+    src, dst, weight = harness.cell_edges(gen, config(name, scale=10), SEED, torch.device("cpu"))
+    assert weight is None
+    g = port.from_edgelist(src, dst, weight, num_vertices=1 << 10, symmetrize=True,
+                           device="cpu")
+    adj = g.csr()
+    assert adj.weights is None
+    h = hashlib.sha256()
+    for t in (src, dst, adj.offsets, adj.minors, adj.majors):
+        h.update(t.numpy().tobytes())
+    assert h.hexdigest() == STORED_SHA256[name]
+
+
+def test_weights_drawn_beside_the_same_tuples():
+    """A weighted configuration draws its unweighted twin's tuples, and one
+    whole weight in [low, high] a tuple, the same for the same seed."""
+    from port_bench import harness
+
+    cpu = torch.device("cpu")
+    plain = harness.cell_edges(kronecker, config("gap-kron-s24", scale=10), SEED, cpu)
+    w1 = harness.cell_edges(kronecker, config("gap-kron-s24w", scale=10), SEED, cpu)
+    w2 = harness.cell_edges(kronecker, config("gap-kron-s24w", scale=10), SEED, cpu)
+    other = harness.cell_edges(kronecker, config("gap-kron-s24w", scale=10), SEED + 1, cpu)
+    assert torch.equal(plain[0], w1[0]) and torch.equal(plain[1], w1[1])
+    w = w1[2]
+    assert w.dtype == torch.float32 and w.numel() == plain[0].numel()
+    assert torch.equal(w, w2[2]) and not torch.equal(w, other[2])
+    assert torch.equal(w, w.round()) and int(w.min()) == 1 and int(w.max()) == 255
+    counts = torch.bincount(w.long(), minlength=256)[1:].double()
+    assert counts.min() > 0.5 * counts.mean()  # uniform over [1, 255]

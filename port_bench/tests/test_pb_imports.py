@@ -50,6 +50,7 @@ def test_reference_loads_no_port():
         "import sys\n"
         "import port_bench.reference.graph, port_bench.reference.pagerank\n"
         "import port_bench.reference.bfs, port_bench.gen.kronecker, port_bench.gen.uniform\n"
+        "import port_bench.reference.sssp, port_bench.gen.weights\n"
         "import port_bench.timing\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))\n"
     )

@@ -43,9 +43,12 @@ def test_reader_path_falls_back_to_the_general_reader():
     # another analytic's metric names no reader in this cell
     assert not harness.reader_path(BENCH, "kernels.bfs_roofline", "pagerank").exists()
     assert not harness.reader_path(BENCH, "gteps.bfs", "pagerank").exists()
+    assert harness.reader_path(BENCH, "gteps.sssp", "sssp") == metrics / "gteps.py"
+    assert (harness.reader_path(BENCH, "kernels.sssp_roofline", "sssp")
+            == metrics / "kernels.roofline.py")
 
 
-@pytest.mark.parametrize("analytic", ["pagerank", "bfs"])
+@pytest.mark.parametrize("analytic", ["pagerank", "bfs", "sssp"])
 def test_end_to_end_readers(analytic):
     rec = dict(RECORD, analytic=analytic)
     assert read(f"gteps.{analytic}", rec) == pytest.approx(20 * 1e9 / 2.0 / 1e9)
@@ -57,7 +60,7 @@ def test_end_to_end_readers(analytic):
     assert read(f"query_p95_ms.{analytic}", empty) is None
 
 
-@pytest.mark.parametrize("analytic", ["pagerank", "bfs"])
+@pytest.mark.parametrize("analytic", ["pagerank", "bfs", "sssp"])
 def test_per_layer_readers(analytic):
     rec = dict(RECORD, analytic=analytic)
     assert read("ingest.build_s", rec) == 0.5

@@ -5,10 +5,10 @@ starts them on the cards, running ``run.py``'s rank (``tests/pb_rank.py``).
 The cells are added to a copy of the benchmark from files alone, as in
 ``test_pb_new_cell.py``: a test-only generator, ``distinct``, whose tuples
 hold each unordered pair of distinct vertices at most once, so that its
-symmetrized stream has no parallel edge and the port's streamed ingest,
-which keeps parallel edges, stores exactly the reference's graph; and
-GAP's Kron, whose stream repeats pairs, so that ``graph_mismatch`` reads
-the parallel edges that the ingest keeps."""
+symmetrized stream has no parallel edge; and GAP's Kron, whose stream
+repeats pairs within and across chunks, which the port's streamed ingest
+coalesces (each ordered pair stored once), so that ``graph_mismatch``
+reads 0 there too."""
 
 import json
 import os
@@ -127,7 +127,8 @@ def parallel_edges(root) -> int:
     return int(pairs.size - np.unique(pairs).size)
 
 
-CASES = ["sound", "sound_traced", "kron_parallel_edges", "dropped_edge", "perturbed_score",
+CASES = ["sound", "sound_traced", "kron_parallel_edges_coalesced", "dropped_edge",
+         "perturbed_score",
          "rank_raises", "rank_hangs"]
 
 
@@ -142,7 +143,7 @@ def test_four_ranks(tiny_root, tmp_path, port_path, case):
     cell, extra, kw = "distinct10-mg.pagerank", [], {}
     if case == "sound_traced":
         kw = dict(trace=1)
-    elif case == "kron_parallel_edges":
+    elif case == "kron_parallel_edges_coalesced":
         cell = "kron10-mg.pagerank"
     elif case != "sound":
         fault = {"dropped_edge": "drop_edge", "perturbed_score": "perturb_score",
@@ -170,10 +171,10 @@ def test_four_ranks(tiny_root, tmp_path, port_path, case):
             "ingest.build_s", "algorithms.launches_per_query.pagerank",
             "algorithms.host_reads_per_query.pagerank", "setup.port_import_s"}
         assert {"busy_s", "window_s"} <= set(line["device"])
-    elif case == "kron_parallel_edges":
-        want = parallel_edges(tiny_root)
-        assert want > 0 and checks["graph_mismatch"] == want
-        assert line["correct"] is False
+    elif case == "kron_parallel_edges_coalesced":
+        assert parallel_edges(tiny_root) > 0  # the stream repeats pairs
+        assert checks["graph_mismatch"] == 0
+        assert line["correct"] is True, checks
     elif case == "dropped_edge":
         assert checks["graph_mismatch"] == 1 and line["correct"] is False
     else:
@@ -213,8 +214,9 @@ def test_launcher_ended_by_sigterm_stops_every_rank(tiny_root, tmp_path, port_pa
 
 def test_cli_across_cards_refuses_without_card(tiny_root):
     """``run.py`` launches a cell across cards without importing torch; its
-    ranks find no card, exit non-zero, and so does the launcher, printing
-    no result."""
+    ranks find no card and exit 2, and the launcher, at the first of them,
+    stops the rest and exits 2 itself, printing no result. How many ranks
+    reach their own look for a card before that stop is a race."""
     add_cells(tiny_root)
     proc = subprocess.run(
         [sys.executable, "port_bench/run.py", "--workload", "distinct10-mg.pagerank", "--seed",
@@ -222,8 +224,9 @@ def test_cli_across_cards_refuses_without_card(tiny_root):
         cwd=tiny_root, capture_output=True, text=True, timeout=120,
         env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""},
     )
-    assert proc.returncode != 0 and proc.stdout.strip() == ""
-    assert proc.stderr.count("no CUDA card") == WORLD
+    assert proc.returncode == 2 and proc.stdout.strip() == ""
+    assert "exited with 2: stopping every rank" in proc.stderr
+    assert 1 <= proc.stderr.count("no CUDA card") <= WORLD
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])

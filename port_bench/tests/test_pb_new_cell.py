@@ -40,3 +40,34 @@ def test_new_cell_from_files_alone(tiny_root):
     assert traced["metrics"]["algorithms.host_reads_per_query.pagerank"]["value"] == 5.0
     after = digests(tiny_root)
     assert {k: v for k, v in after.items() if k in before} == before
+
+
+def test_new_weighted_cell_from_files_alone(tiny_root):
+    """A further weighted cell is data alone: a configuration that names
+    weights and a mix of the sssp analytic."""
+    before = digests(tiny_root)
+    bench = tiny_root / BENCH.name
+    traffic = json.loads((bench / "traffic" / "sssp.json").read_text())
+    traffic.update(warmup_queries=1, check_sample=2)
+    (bench / "traffic" / "sssp2.json").write_text(json.dumps(traffic))
+    config = json.loads((bench / "configs" / "gap-urand-s24.json").read_text())
+    config.update(name="gap-urand-w", scale=9,
+                  weights={"distribution": "uniform_int", "low": 1, "high": 63,
+                           "dtype": "float32"})
+    (bench / "configs" / "gap-urand-w.json").write_text(json.dumps(config))
+    spec = json.loads((tiny_root / "BENCHMARK.json").read_text())
+    spec["configs"].append(dict(spec["configs"][1], name="gap-urand-w",
+                                file=f"{BENCH.name}/configs/gap-urand-w.json"))
+    spec["workloads"].append({"name": "urand9w.sssp2", "config": "gap-urand-w",
+                              "traffic": "sssp2", "chips": 1, "why": "a test cell"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "kron24w.sssp" in m.get("workloads", []):
+            m["workloads"].append("urand9w.sssp2")
+    (tiny_root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    out = run_tiny(tiny_root, "urand9w.sssp2")
+    assert out["correct"] is True, out["checks"]
+    assert set(out["metrics"]) == {"gteps.sssp", "query_p95_ms.sssp", "setup_s"}
+    assert set(out["checks"]) == {"graph_mismatch", "sssp_invalid"}
+    after = digests(tiny_root)
+    assert {k: v for k, v in after.items() if k in before} == before

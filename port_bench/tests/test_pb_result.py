@@ -8,7 +8,7 @@ import sys
 import pytest
 from pb_helpers import REPO, run_tiny
 
-CELLS = ["kron24.pagerank", "urand24.pagerank", "kron24.bfs", "urand24.bfs"]
+CELLS = ["kron24.pagerank", "urand24.pagerank", "kron24.bfs", "urand24.bfs", "kron24w.sssp"]
 
 
 def spec():
@@ -31,7 +31,7 @@ def test_result_line(tiny_root, workload):
         assert set(check) == {"value", "limit"} and check["value"] <= check["limit"]
 
 
-@pytest.mark.parametrize("workload", ["kron24.pagerank", "urand24.bfs"])
+@pytest.mark.parametrize("workload", ["kron24.pagerank", "urand24.bfs", "kron24w.sssp"])
 def test_traced_result_line(tiny_root, workload):
     line = run_tiny(tiny_root, workload, trace=True)
     per_layer = [m for m in spec()["per_layer"] if workload in m["workloads"]]
